@@ -1,0 +1,225 @@
+"""Wrappers of the hand-written CUDA kernels, with their plain versions.
+
+Port of ``hotstuff_tpu/ops/pallas_msm.py``. Four kernels, sources in
+``hotstuff_tpu_torch/csrc/``:
+
+- K1 ``sqrt_pow`` (``sqrt_pow.cu``) replaces ``_sqrt_pow_kernel``;
+- K2 ``msm_partials(signed=True)`` (``msm_partials.cu``) replaces
+  ``_make_partials_kernel_signed``;
+- K3 ``msm_combine`` (``msm_combine.cu``) replaces ``_make_combine_kernel``;
+- K4 ``msm_partials(signed=False)`` (``msm_partials.cu``) replaces
+  ``_partials_kernel``.
+
+``msm_signed``/``msm`` chain K2/K4 into K3, as the reference's ``_build``
+functions chain its two ``pallas_call``s.
+
+A wrapper takes its plain version only for a tensor on the CPU. For a
+CUDA tensor it launches the kernel or raises. Each kernel's plain version
+repeats the kernel's arithmetic in the same order, so kernel and plain
+version agree limb for limb; for the whole MSM the CPU path is
+``curve.msm_signed``/``curve.msm``, the step-by-step port of the
+reference's plain MSM (its additions run in another order, so MSM results
+compare by canonical affine encoding).
+
+``LAUNCHES`` counts the launches of each kernel; a wrapper adds one where
+it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import curve as cv
+from . import field as fe
+
+LAUNCHES = {"sqrt_pow": 0, "msm_partials_signed": 0, "msm_partials": 0, "msm_combine": 0}
+
+# Lanes per CTA (one thread per lane) of K1 and of the partials kernels;
+# the combine then sums m / block partials per window. ``block`` arguments
+# override them, as the reference's lanes per grid step.
+SQRT_POW_BLOCK = 128
+PARTIALS_BLOCK = 64
+MAX_WINDOWS = 64
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(t: torch.Tensor, shape: tuple, what: str) -> torch.Tensor:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _launch(source: str, fn: str, counter: str, *args) -> None:
+    from hotstuff_tpu_torch.utils.kernel_build import kernel
+
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = kernel(source, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")
+    LAUNCHES[counter] += 1
+
+
+# -- K1: decompression root ------------------------------------------------
+
+
+def _pow_p58(w: torch.Tensor) -> torch.Tensor:
+    """w^(2^252 - 3): the addition chain of the reference's ``_pow_p58``."""
+
+    def sqk(x, k):
+        for _ in range(k):
+            x = fe.mul(x, x)
+        return x
+
+    f1 = w
+    f2 = fe.mul(sqk(f1, 1), f1)
+    f4 = fe.mul(sqk(f2, 2), f2)
+    f5 = fe.mul(sqk(f4, 1), f1)
+    f10 = fe.mul(sqk(f5, 5), f5)
+    f20 = fe.mul(sqk(f10, 10), f10)
+    f40 = fe.mul(sqk(f20, 20), f20)
+    f80 = fe.mul(sqk(f40, 40), f40)
+    f160 = fe.mul(sqk(f80, 80), f80)
+    f240 = fe.mul(sqk(f160, 80), f80)
+    f250 = fe.mul(sqk(f240, 10), f10)
+    return fe.mul(sqk(f250, 2), w)
+
+
+def sqrt_pow_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """r = u * v^3 * (u v^7)^((p-5)/8), step by step as ``_sqrt_pow_kernel``."""
+    v2 = fe.mul(v, v)
+    v3 = fe.mul(v2, v)
+    v7 = fe.mul(fe.mul(v3, v3), v)
+    w = fe.mul(u, v7)
+    return fe.mul(fe.mul(u, v3), _pow_p58(w))
+
+
+def sqrt_pow(u: torch.Tensor, v: torch.Tensor, block: int | None = None) -> torch.Tensor:
+    """K1 for [m, 20] int32 inputs: the ``root_fn`` of ``field.sqrt_ratio``."""
+    if u.device.type == "cpu":
+        return sqrt_pow_plain(u, v)
+    m = u.shape[0]
+    u = _check(u, (m, fe.NLIMB), "sqrt_pow u")
+    v = _check(v, (m, fe.NLIMB), "sqrt_pow v")
+    r = torch.empty_like(u)
+    block = min(SQRT_POW_BLOCK, m) if block is None else block
+    _launch(
+        "sqrt_pow", "sqrt_pow_launch", "sqrt_pow",
+        u.data_ptr(), v.data_ptr(), r.data_ptr(), m, block,
+    )
+    return r
+
+
+# -- K2 / K4: per-block window partials ------------------------------------
+
+
+def msm_partials_plain(
+    points: torch.Tensor, digits: torch.Tensor, block: int, signed: bool
+) -> torch.Tensor:
+    """[m, 4, 20] points, [n_windows, m] digits -> [m // block, n_windows,
+    4, 20] per-block window sums, in the kernel's order: table[d] =
+    table[d-1] + P, then per window a tree over each block pairing lane t
+    with lane t + half."""
+    m = points.shape[0]
+    table = cv._build_table(points, 9 if signed else 16)
+    out = []
+    for w in range(digits.shape[0]):
+        row = digits[w]
+        if signed:
+            sel = cv._take(table, row.abs())
+            sel = cv.point_select(row >= 0, sel, cv.point_neg(sel))
+        else:
+            sel = cv._take(table, row)
+        cur = sel.reshape(m // block, block, 4, fe.NLIMB)
+        half = block // 2
+        while half >= 1:
+            cur = cv.point_add(cur[:, :half], cur[:, half : 2 * half])
+            half //= 2
+        out.append(cur[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def msm_partials(
+    points: torch.Tensor, digits: torch.Tensor, signed: bool, block: int | None = None
+) -> torch.Tensor:
+    """K2 (signed digits in [-8, 8]) or K4 (unsigned digits in 0..15)."""
+    m = points.shape[0]
+    n_windows = digits.shape[0]
+    if block is None:
+        block = min(PARTIALS_BLOCK, m)
+    if m % block or block & (block - 1) or not 1 <= n_windows <= MAX_WINDOWS:
+        raise ValueError(f"msm_partials: bad shape m={m} block={block} windows={n_windows}")
+    if points.device.type == "cpu":
+        return msm_partials_plain(points, digits, block, signed)
+    points = _check(points, (m, 4, fe.NLIMB), "msm points")
+    digits = _check(digits, (n_windows, m), "msm digits")
+    out = torch.empty((m // block, n_windows, 4, fe.NLIMB), dtype=torch.int32, device=points.device)
+    if signed:
+        fn, counter = "msm_partials_signed_launch", "msm_partials_signed"
+    else:
+        fn, counter = "msm_partials_unsigned_launch", "msm_partials"
+    _launch(
+        "msm_partials", fn, counter,
+        points.data_ptr(), digits.data_ptr(), out.data_ptr(), m, n_windows, block,
+    )
+    return out
+
+
+# -- K3: combine + Horner ----------------------------------------------------
+
+
+def msm_combine_plain(partials: torch.Tensor) -> torch.Tensor:
+    """[n_blocks, n_windows, 4, 20] -> [4, 20]: sum the blocks in order,
+    then S = 16 S + W[w] MSB-first, as ``_make_combine_kernel``."""
+    cur = partials[0]
+    for g in range(1, partials.shape[0]):
+        cur = cv.point_add(cur, partials[g])
+    s = cur[0]
+    for w in range(1, cur.shape[0]):
+        for _ in range(4):
+            s = cv.point_double(s)
+        s = cv.point_add(s, cur[w])
+    return s
+
+
+def msm_combine(partials: torch.Tensor) -> torch.Tensor:
+    """K3."""
+    if partials.device.type == "cpu":
+        return msm_combine_plain(partials)
+    n_blocks, n_windows = partials.shape[:2]
+    if not 1 <= n_windows <= MAX_WINDOWS:
+        raise ValueError(f"msm_combine: {n_windows} windows (at most {MAX_WINDOWS})")
+    partials = _check(partials, (n_blocks, n_windows, 4, fe.NLIMB), "msm partials")
+    out = torch.empty((4, fe.NLIMB), dtype=torch.int32, device=partials.device)
+    _launch(
+        "msm_combine", "msm_combine_launch", "msm_combine",
+        partials.data_ptr(), out.data_ptr(), n_blocks, n_windows,
+    )
+    return out
+
+
+# -- the MSMs ------------------------------------------------------------------
+
+
+def msm_signed(
+    points: torch.Tensor, digits: torch.Tensor, block: int | None = None
+) -> torch.Tensor:
+    """``curve.msm_signed`` semantics: [m, 4, 20] points, [n_windows, m]
+    signed digits MSB-first (33 windows for RLC lanes, 64 for mod-L)."""
+    if points.device.type == "cpu":
+        return cv.msm_signed(points, digits)
+    return msm_combine(msm_partials(points, digits, signed=True, block=block))
+
+
+def msm(points: torch.Tensor, digits: torch.Tensor, block: int | None = None) -> torch.Tensor:
+    """``curve.msm`` semantics: [m, 4, 20] points, [64, m] digits 0..15."""
+    if points.device.type == "cpu":
+        return cv.msm(points, digits)
+    return msm_combine(msm_partials(points, digits, signed=False, block=block))

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA card with nvcc (``cuda`` marker) and
+skips without one: the kernels have no CPU mode. The file imports nothing
+of JAX, so it runs on a GPU host that has only the port's dependencies:
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+Tolerance: limb-exact between each kernel and its plain version (they
+repeat the same arithmetic in the same order); MSM results also equal the
+RFC 8032 oracle by compressed encoding.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from hotstuff_tpu_torch import crypto
+from hotstuff_tpu_torch.crypto import ed25519_ref as ref
+from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
+from hotstuff_tpu_torch.ops import curve as cv
+from hotstuff_tpu_torch.ops import field as fe
+from hotstuff_tpu_torch.ops import msm_kernels as mk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def loose(shape, seed):
+    return np.random.default_rng(seed).integers(0, 8192 + fe.FOLD, size=shape).astype(np.int32)
+
+
+def oracle_points(m, seed):
+    rng = random.Random(seed)
+    pts = [ref.point_mul(rng.getrandbits(250), ref.G) for _ in range(m)]
+    rows = []
+    for x, y, z, _ in pts:
+        zi = ref.inv(z)
+        xa, ya = x * zi % ref.P, y * zi % ref.P
+        rows.append(np.stack([fe._int_to_limbs(xa), fe._int_to_limbs(ya), fe.ONE_LIMBS,
+                              fe._int_to_limbs(xa * ya % ref.P)]))
+    return pts, np.stack(rows).astype(np.int32)
+
+
+# below one CTA's lanes; the fresh-R width; a ragged last CTA
+@pytest.mark.parametrize("m,block", [(4, None), (1024, None), (100, 32)])
+def test_sqrt_pow_matches_plain(cuda, m, block):
+    u = torch.from_numpy(loose((m, 20), 11)).to(cuda)
+    v = torch.from_numpy(loose((m, 20), 12)).to(cuda)
+    before = mk.LAUNCHES["sqrt_pow"]
+    got = mk.sqrt_pow(u, v, block=block)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["sqrt_pow"] == before + 1
+    assert torch.equal(got, mk.sqrt_pow_plain(u, v))
+
+
+@pytest.mark.parametrize("signed,windows,m", [(True, 33, 4), (True, 64, 256), (False, 64, 128)])
+def test_msm_kernels_match_plain_and_oracle(cuda, signed, windows, m):
+    pts, arr = oracle_points(m, 8)
+    rng = random.Random(9)
+    scalars = [rng.getrandbits(4 * windows - 2) for _ in range(m)]
+    digits = (cv.scalars_to_signed_digits(scalars, windows) if signed
+              else cv.scalars_to_digits(scalars))
+    tp, td = torch.from_numpy(arr).to(cuda), torch.from_numpy(digits.copy()).to(cuda)
+    part = mk.msm_partials(tp, td, signed=signed)
+    block = min(mk.PARTIALS_BLOCK, m)
+    assert torch.equal(part, mk.msm_partials_plain(tp, td, block, signed))
+    out = mk.msm_combine(part)
+    assert torch.equal(out, mk.msm_combine_plain(part))
+    whole = (mk.msm_signed if signed else mk.msm)(tp, td, block=2)  # m / 2 CTAs
+    assert cv.to_affine_bytes(whole) == cv.to_affine_bytes(out)
+    want = ref.IDENTITY
+    for s, p in zip(scalars, pts):
+        want = ref.point_add(want, ref.point_mul(s, p))
+    assert cv.to_affine_bytes(out) == ref.point_compress(want)
+
+
+def test_wrappers_check_their_inputs(cuda):
+    u = torch.zeros((8, 20), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        mk.sqrt_pow(u, u)
+    pts = torch.zeros((8, 4, 20), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mk.msm_partials(pts, torch.zeros((64, 4), dtype=torch.int32, device=cuda), signed=True)
+
+
+def test_backend_on_card_accepts_and_rejects(cuda):
+    rng = random.Random(3)
+    seeds = [rng.randbytes(32) for _ in range(5)]
+    digest = crypto.sha512_digest(b"card")
+    pubs = [ref.secret_to_public(s) for s in seeds]
+    sigs = [ref.sign(s, digest.data) for s in seeds]
+    mk.reset_launches()
+    backend = CudaBackend()
+    backend.verify_batch([digest.data] * 5, pubs, sigs)
+    bad = sigs[:2] + [sigs[2][:4] + bytes([sigs[2][4] ^ 1]) + sigs[2][5:]] + sigs[3:]
+    with pytest.raises(crypto.CryptoError):
+        backend.verify_batch([digest.data] * 5, pubs, bad)
+    CudaBackend(cache=False).verify_batch([digest.data] * 5, pubs, sigs)
+    assert all(count > 0 for count in mk.LAUNCHES.values()), mk.LAUNCHES
