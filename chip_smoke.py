@@ -19,7 +19,11 @@ unguarded (any failure ends the run with a non-zero exit):
 5. kernels against their plain PyTorch versions on the card, on the inputs
    the main path gives them (one QC's batch), limb for limb; the full MSMs
    against the plain ``curve.msm_signed``/``curve.msm`` by canonical affine
-   encoding (their additions run in another order);
+   encoding (their additions run in another order). Each kernel is timed at
+   each of its main-path shapes by CUDA events and by the profiler's device
+   time (``utils/kernel_times.kernel_ms``: the profiler's figure is taken
+   where the two differ by more than 10%), beside its grid, threads per
+   CTA, and ptxas' registers and stack bytes;
 6. warm per-QC time, split into host prep and the stream span of the copy
    and ``run_cached`` (CUDA events; it includes the gaps where the card
    waits for the host to issue the next op, so it is not device time);
@@ -59,6 +63,7 @@ from hotstuff_tpu_torch.ops import field as fe  # noqa: E402
 from hotstuff_tpu_torch.ops import msm_kernels as mk  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
+from hotstuff_tpu_torch.utils.kernel_times import PROFILER_NAMES, kernel_ms  # noqa: E402
 
 # Where each kernel's TPU counterpart is built (hotstuff_tpu/ops/pallas_msm.py).
 SOURCES = {
@@ -80,6 +85,10 @@ IMAD_PER_MUL = 400
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 MULS_PADD, MULS_PDOUBLE, MULS_SQRT_POW = 9, 8, 269
+# K3's serial chain, in field muls that each wait for the one before: a
+# point add's muls run in 3 dependent stages ({a, b, T 2d, 2Z Z'}, then
+# (T 2d) T', then the four products), a doubling's in 2.
+STAGES_PADD, STAGES_PDOUBLE = 3, 2
 
 # The smoke configuration: BASELINE.json config 4, a 1000-validator
 # committee (stake 1 each, quorum 667), at its full width.
@@ -104,18 +113,24 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events, after
-    one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def ptxas_usage() -> dict[str, tuple[int, int, int]]:
+    """(registers, stack bytes, spill store bytes) of each kernel, by its
+    ``PROFILER_NAMES`` key, from ptxas' report in the build log."""
+    mangled = {"sqrt_pow": "sqrt_pow_kernel", "msm_partials_signed": "msm_partials_kernelILb1",
+               "msm_partials": "msm_partials_kernelILb0", "msm_combine": "msm_combine_kernel"}
+    usage, current = {}, None
+    for _, log in kernel_build.build_log.values():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                current = next((k for k, m in mangled.items() if m in line), None)
+            elif current and "bytes stack frame" in line:
+                words = line.split()
+                stack, spill = int(words[0]), int(words[4])
+            elif current and "Used" in line and "registers" in line:
+                regs = int(line.split("Used")[1].split()[0])
+                usage[current] = (regs, stack, spill)
+                current = None
+    return usage
 
 
 def bound_ms(muls: int, nbytes: int, imad_per_s: float) -> tuple[float, str]:
@@ -223,6 +238,11 @@ def oracle_check(device) -> None:
 # -- phase 5: kernels against plain versions ----------------------------------
 
 
+def usage_note(name: str) -> str:
+    regs, stack, spill = ptxas_usage()[name]
+    return f"{regs} registers, {stack} B stack, {spill} B spill stores"
+
+
 def kernel_checks(qc: QC, backend, device, imad_per_s: float):
     digest = qc.digest().data
     msgs = [digest] * len(qc.votes)
@@ -255,8 +275,13 @@ def kernel_checks(qc: QC, backend, device, imad_per_s: float):
     check(err == 0, f"sqrt_pow differs from its plain version by {err}")
     check(bool((fe.canonical(r_k) == fe.canonical(r_p)).all()), "sqrt_pow canonical mismatch")
     b, by = bound_ms(MULS_SQRT_POW * m, 3 * m * 80, imad_per_s)
-    rows["sqrt_pow"] = dict(max_abs_err=err, ms=cuda_ms(lambda: mk.sqrt_pow(u, v), 20),
-                            plain_ms=plain, bound_ms=b, bound_by=by, shape=f"u, v [{m}, 20]")
+    ms, ev, pr = kernel_ms(lambda: mk.sqrt_pow(u, v), 20, PROFILER_NAMES["sqrt_pow"])
+    rows["sqrt_pow"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                            shape=f"u, v [{m}, 20]")
+    blocks = -(-m // mk.SQRT_POW_BLOCK)
+    notes.append(f"sqrt_pow u, v [{m}, 20]: grid ({blocks}, 1) x {min(mk.SQRT_POW_BLOCK, m)} "
+                 f"threads, {usage_note('sqrt_pow')}; {ms:.4f} ms (events {ev:.4f}, profiler "
+                 f"{pr:.4f}; plain {plain:.1f} ms, bound {b:.4f} ms)")
 
     # K2 + K3 (signed) at both window counts; K4 + K3 (unsigned).
     cases = [
@@ -281,8 +306,11 @@ def kernel_checks(qc: QC, backend, device, imad_per_s: float):
         check(cv.to_affine_bytes(out_k) == cv.to_affine_bytes(ref_pt),
               f"{kind} MSM ({w} windows, m={m}) != plain curve MSM")
         table = 9 if signed else 16
-        p_ms = cuda_ms(lambda: mk.msm_partials(pts, digits, signed=signed), 5)
-        c_ms = cuda_ms(lambda: mk.msm_combine(part_k), 5)
+        pname = "msm_partials_signed" if signed else "msm_partials"
+        p_ms, p_ev, p_pr = kernel_ms(lambda: mk.msm_partials(pts, digits, signed=signed), 10,
+                                     PROFILER_NAMES[pname])
+        c_ms, c_ev, c_pr = kernel_ms(lambda: mk.msm_combine(part_k), 10,
+                                     PROFILER_NAMES["msm_combine"])
         pb, pby = bound_ms(
             MULS_PADD * (m * (table - 2) + nb * w * (block - 1)),
             m * 320 + w * m * 4 + nb * w * 320, imad_per_s,
@@ -291,12 +319,20 @@ def kernel_checks(qc: QC, backend, device, imad_per_s: float):
             MULS_PADD * w * (nb - 1) + (w - 1) * (4 * MULS_PDOUBLE + MULS_PADD),
             nb * w * 320 + 320, imad_per_s,
         )
+        p_grid, p_threads = mk.partials_geometry(m, w, block)
+        c_grid, c_threads = mk.combine_geometry(w)
         notes.append(
-            f"{kind} m={m} windows={w} block={block}: partials {p_ms:.3f} ms "
-            f"(plain {part_plain:.1f} ms, bound {pb:.4f} ms), combine {c_ms:.3f} ms "
-            f"(plain {comb_plain:.1f} ms, bound {cb:.4f} ms)"
+            f"{pname} points [{m}, 4, 20], digits [{w}, {m}]: grid {p_grid} x {p_threads} "
+            f"threads, {usage_note(pname)}; {p_ms:.4f} ms (events {p_ev:.4f}, profiler "
+            f"{p_pr:.4f}; plain {part_plain:.1f} ms, bound {pb:.4f} ms)"
         )
-        pname = "msm_partials_signed" if signed else "msm_partials"
+        chain = (nb - 1) * STAGES_PADD + (w - 1) * (4 * STAGES_PDOUBLE + STAGES_PADD)
+        notes.append(
+            f"msm_combine partials [{nb}, {w}, 4, 20]: grid {c_grid} x {c_threads} threads, "
+            f"{usage_note('msm_combine')}; {c_ms:.4f} ms (events {c_ev:.4f}, profiler "
+            f"{c_pr:.4f}; plain {comb_plain:.1f} ms, bound {cb:.4f} ms; serial chain {chain} "
+            f"dependent mul stages, {c_ms * 1e6 / chain:.0f} ns each)"
+        )
         # The JSON row of each kernel is taken at its widest main-path shape:
         # K2 and K3 at the cached lanes' 64 windows, K4 at the uncached batch.
         if w == 64 and (pname not in rows):
@@ -401,10 +437,8 @@ def main() -> int:
     kernel_build.load_all()
     print(f"kernel build {time.perf_counter() - t:.1f} s: " + ", ".join(
         f"{name} {secs:.1f} s" for name, (secs, _) in sorted(kernel_build.build_log.items())))
-    for name, (_, log) in sorted(kernel_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name, (regs, stack, spill) in sorted(ptxas_usage().items()):
+        print(f"  ptxas {name}: {regs} registers, {stack} B stack, {spill} B spill stores")
 
     # 3. the main path
     t = time.perf_counter()

@@ -2,7 +2,7 @@
 //
 // Device counterparts of the limb-major helpers of
 // hotstuff_tpu/ops/pallas_msm.py (_carry_pass/_carry/_add/_sub/_mul at
-// :59-93, _padd/_pdouble at :168-202, _neg_fe at :289-291), in the same
+// :59-93, _padd at :168-181, _neg_fe at :289-291), in the same
 // radix-2^13 x 20-limb representation, so each kernel is limb-exact
 // against its plain PyTorch version (hotstuff_tpu_torch/ops/field.py).
 //
@@ -16,6 +16,11 @@
 // 400 IMADs (20 x 20 limb products) plus ~200 shifts, masks and adds for the
 // carries; a point add is 9 muls, a doubling 8. The kernels move a few
 // hundred kilobytes, so memory is never the limit.
+//
+// Everything here is inlined and passed by value, so ptxas keeps a point's
+// 80 words in registers; an out-of-line call with reference arguments put
+// every point operation through the stack. These are one thread's helpers
+// (K1, K2, K4); K3's warp-cooperative counterparts are in fe25519_warp.cuh.
 #pragma once
 
 #include <cstdint>
@@ -154,9 +159,8 @@ __device__ __forceinline__ Pt pt_identity() {
   return p;
 }
 
-// Unified addition (add-2008-hwcd-3, a = -1), as _padd. All of p and q is
-// read before r is written, so r may alias either operand.
-__device__ __noinline__ void padd(Pt& r, const Pt& p, const Pt& q) {
+// Unified addition (add-2008-hwcd-3, a = -1), as _padd.
+__device__ __forceinline__ Pt padd(const Pt& p, const Pt& q) {
   Fe d2;
 #pragma unroll
   for (int k = 0; k < NLIMB; ++k) d2.v[k] = D2[k];
@@ -168,27 +172,7 @@ __device__ __noinline__ void padd(Pt& r, const Pt& p, const Pt& q) {
   const Fe f = fe_sub(d, c);
   const Fe g = fe_add(d, c);
   const Fe h = fe_add(b, a);
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-}
-
-// Dedicated doubling (dbl-2008-hwcd), as _pdouble. r may alias p.
-__device__ __noinline__ void pdouble(Pt& r, const Pt& p) {
-  const Fe a = fe_mul(p.x, p.x);
-  const Fe b = fe_mul(p.y, p.y);
-  const Fe zz = fe_mul(p.z, p.z);
-  const Fe c = fe_add(zz, zz);
-  const Fe h = fe_add(a, b);
-  const Fe xy = fe_add(p.x, p.y);
-  const Fe e = fe_sub(h, fe_mul(xy, xy));
-  const Fe g = fe_sub(a, b);
-  const Fe f = fe_add(c, g);
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
+  return Pt{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
 }
 
 }  // namespace fe25519

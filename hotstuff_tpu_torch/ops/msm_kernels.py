@@ -40,6 +40,27 @@ LAUNCHES = {"sqrt_pow": 0, "msm_partials_signed": 0, "msm_partials": 0, "msm_com
 SQRT_POW_BLOCK = 128
 PARTIALS_BLOCK = 64
 MAX_WINDOWS = 64
+# Windows per CTA of the partials kernels: their grid is m / block x
+# ceil(n_windows / PARTIALS_WINDOW_GROUP) CTAs, 272 and 512 at the cached
+# path's 33 and 64 windows over 1024 lanes, so every one of the H100's 132
+# SMs takes two to four. Fixed; callers do not set it. Chosen by a sweep of
+# 1, 2, 4 and 8 on the H100 (utils/kernel_times.py --window-groups; PERF.md):
+# fewer windows a CTA shorten each thread's chain of point adds, but every
+# CTA rebuilds its lanes' table, and 2 gave the least time for the two
+# shapes of a cached QC together.
+PARTIALS_WINDOW_GROUP = 2
+# Threads per CTA of the combine (four warps), one CTA a window.
+COMBINE_THREADS = 128
+
+
+def partials_geometry(m: int, n_windows: int, block: int) -> tuple[tuple[int, int], int]:
+    """(grid, threads per CTA) of K2/K4 at these shapes."""
+    return (m // block, -(-n_windows // PARTIALS_WINDOW_GROUP)), block
+
+
+def combine_geometry(n_windows: int) -> tuple[tuple[int, int], int]:
+    """(grid, threads per CTA) of K3 at these shapes."""
+    return (n_windows, 1), COMBINE_THREADS
 
 
 def reset_launches() -> None:
@@ -168,6 +189,7 @@ def msm_partials(
     _launch(
         "msm_partials", fn, counter,
         points.data_ptr(), digits.data_ptr(), out.data_ptr(), m, n_windows, block,
+        PARTIALS_WINDOW_GROUP,
     )
     return out
 
@@ -198,9 +220,14 @@ def msm_combine(partials: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"msm_combine: {n_windows} windows (at most {MAX_WINDOWS})")
     partials = _check(partials, (n_blocks, n_windows, 4, fe.NLIMB), "msm partials")
     out = torch.empty((4, fe.NLIMB), dtype=torch.int32, device=partials.device)
+    # The window sums, and the ticket that elects the CTA which runs the
+    # Horner once every window's sum is in (it must start at 0).
+    sums = torch.empty((n_windows, 4, fe.NLIMB), dtype=torch.int32, device=partials.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=partials.device)
     _launch(
         "msm_combine", "msm_combine_launch", "msm_combine",
-        partials.data_ptr(), out.data_ptr(), n_blocks, n_windows,
+        partials.data_ptr(), out.data_ptr(), sums.data_ptr(), ticket.data_ptr(),
+        n_blocks, n_windows,
     )
     return out
 

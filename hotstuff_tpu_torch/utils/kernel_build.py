@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# Per source: (seconds, nvcc's stderr, which holds ptxas' register counts).
+# Per source: (seconds, nvcc's output, which holds ptxas' register counts).
+# A library found already built reads its log from beside it, with 0 s.
 build_log: dict[str, tuple[float, str]] = {}
 
 
@@ -63,9 +64,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
         "sqrt_pow_launch": [vp, vp, vp, i, i, vp],
-        "msm_partials_signed_launch": [vp, vp, vp, i, i, i, vp],
-        "msm_partials_unsigned_launch": [vp, vp, vp, i, i, i, vp],
-        "msm_combine_launch": [vp, vp, i, i, vp],
+        "msm_partials_signed_launch": [vp, vp, vp, i, i, i, i, vp],
+        "msm_partials_unsigned_launch": [vp, vp, vp, i, i, i, i, vp],
+        "msm_combine_launch": [vp, vp, vp, vp, i, i, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)
@@ -94,6 +95,8 @@ def load_all() -> dict[str, ctypes.CDLL]:
         for src in sources:
             target = out_dir / f"{src.stem}.so"
             if target.exists():
+                log = out_dir / f"{src.stem}.log"
+                build_log[src.name] = (0.0, log.read_text() if log.exists() else "")
                 continue
             tmp = out_dir / f"{src.stem}.{os.getpid()}.tmp.so"
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
@@ -108,6 +111,7 @@ def load_all() -> dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{out}")
             else:
+                (out_dir / f"{src.stem}.log").write_text(out)
                 os.replace(tmp, target)
         if failures:
             raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))

@@ -145,3 +145,20 @@ def test_msm_partials_rejects_bad_shapes():
         mk.msm_partials(torch.from_numpy(arr), digits, signed=True, block=3)
     with pytest.raises(ValueError):
         mk.msm_partials(torch.from_numpy(arr), torch.zeros((65, 4), dtype=torch.int32), signed=True)
+
+
+@pytest.mark.parametrize("m,windows", [(1024, 33), (1024, 64), (2048, 64), (64, 1)])
+def test_kernel_geometry_covers_every_window_once(m, windows):
+    """K2/K4's grid takes every window of every block exactly once, in
+    window groups whose last one may be ragged, and at the main path's
+    widths launches a CTA for each of the H100's 132 SMs; K3 takes one CTA
+    a window."""
+    block = min(mk.PARTIALS_BLOCK, m)
+    (gx, gy), threads = mk.partials_geometry(m, windows, block)
+    assert (gx, threads) == (m // block, block)
+    g = mk.PARTIALS_WINDOW_GROUP
+    covered = [w for y in range(gy) for w in range(y * g, min(y * g + g, windows))]
+    assert covered == list(range(windows))
+    if m >= 1024:
+        assert gx * gy >= 132
+    assert mk.combine_geometry(windows) == ((windows, 1), mk.COMBINE_THREADS)

@@ -82,6 +82,47 @@ def test_msm_kernels_match_plain_and_oracle(cuda, signed, windows, m):
     assert cv.to_affine_bytes(out) == ref.point_compress(want)
 
 
+# W = 1, 33 (a ragged last window group) and 64; m below one block, one
+# block, the fresh and cached width, and the uncached width.
+@pytest.mark.parametrize("m", [4, 64, 1024, 2048])
+@pytest.mark.parametrize("windows", [1, 33, 64])
+@pytest.mark.parametrize("signed", [True, False])
+def test_msm_partials_match_plain_at_every_geometry(cuda, signed, windows, m):
+    rng = np.random.default_rng(windows * m)
+    pts = torch.from_numpy(loose((m, 4, 20), m)).to(cuda)
+    low, high = (-8, 9) if signed else (0, 16)
+    digits = torch.from_numpy(rng.integers(low, high, size=(windows, m)).astype(np.int32)).to(cuda)
+    block = min(mk.PARTIALS_BLOCK, m)
+    got = mk.msm_partials(pts, digits, signed=signed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.msm_partials_plain(pts, digits, block, signed))
+
+
+@pytest.mark.parametrize("n_windows", [1, 33, 64])
+@pytest.mark.parametrize("n_blocks", [1, 16, 32])
+def test_msm_combine_matches_plain(cuda, n_blocks, n_windows):
+    part = torch.from_numpy(loose((n_blocks, n_windows, 4, 20), n_blocks + n_windows)).to(cuda)
+    got = mk.msm_combine(part)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.msm_combine_plain(part))
+    assert torch.equal(mk.msm_combine(part), got)  # the ticket starts from 0 at every call
+
+
+def test_warm_cached_batch_launches_k2_and_k3_twice(cuda):
+    rng = random.Random(4)
+    seeds = [rng.randbytes(32) for _ in range(6)]
+    digest = crypto.sha512_digest(b"warm")
+    pubs = [ref.secret_to_public(s) for s in seeds]
+    sigs = [ref.sign(s, digest.data) for s in seeds]
+    backend = CudaBackend()
+    backend.verify_batch([digest.data] * 6, pubs, sigs)  # fills the key cache
+    mk.reset_launches()
+    backend.verify_batch([digest.data] * 6, pubs, sigs)
+    assert mk.LAUNCHES == {
+        "sqrt_pow": 1, "msm_partials_signed": 2, "msm_combine": 2, "msm_partials": 0,
+    }
+
+
 def test_wrappers_check_their_inputs(cuda):
     u = torch.zeros((8, 20), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
