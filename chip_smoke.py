@@ -14,22 +14,31 @@ unguarded (any failure ends the run with a non-zero exit):
    and ``QC.verify`` runs under ``set_backend(CudaBackend())``. A QC with
    one flipped signature byte must raise ``InvalidSignature``, one QC goes
    through the uncached path. The kernels' launch counts are zeroed just
-   before and read just after; each kernel must have launched;
+   before and read just after; each kernel of the path (decompression,
+   K2, K3, K4, verdict) must have launched;
 4. small-input check: both MSMs against the pure-Python RFC 8032 oracle;
 5. kernels against their plain PyTorch versions on the card, on the inputs
-   the main path gives them (one QC's batch), limb for limb; the full MSMs
-   against the plain ``curve.msm_signed``/``curve.msm`` by canonical affine
-   encoding (their additions run in another order). Each kernel is timed at
+   the main path gives them (one QC's batch), limb for limb; the
+   decompression with invalid rows (a non-square, x = 0 with sign 1)
+   written over padding lanes, the verdict also on a rejected point and on
+   an ``ok`` with one False; the root alone (``sqrt_pow``, off the path);
+   the full MSMs against the plain ``curve.msm_signed``/``curve.msm`` by
+   canonical affine encoding (their additions run in another order). Each
+   kernel is timed at
    each of its main-path shapes by CUDA events and by the profiler's device
    time (``utils/kernel_times.kernel_ms``: the profiler's figure is taken
    where the two differ by more than 10%), beside its grid, threads per
    CTA, and ptxas' registers and stack bytes;
 6. warm per-QC time, split into host prep and the stream span of the copy
    and ``run_cached`` (CUDA events; it includes the gaps where the card
-   waits for the host to issue the next op, so it is not device time);
+   waits for the host to issue the next op, so it is not device time); a
+   warm QC must launch decompression once, K2 and K3 twice, the verdict
+   once, and nothing else;
 7. a ``torch.profiler`` trace of warm ``QC.verify`` calls: device time
    (the busy time the profiler saw), its share of the wall time, and
-   device time and launches by kernel name.
+   device time and launches by kernel name. A warm QC must stay within
+   400 aten ops and 60 device ops (the glue the kernels replaced was
+   about 10,700 and 4,150).
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``)
 and ``{"ok": true, "device": {...}}``.
@@ -65,8 +74,10 @@ from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
 from hotstuff_tpu_torch.utils.kernel_times import PROFILER_NAMES, kernel_ms  # noqa: E402
 
-# Where each kernel's TPU counterpart is built (hotstuff_tpu/ops/pallas_msm.py).
+# Where each kernel's TPU counterpart is built (hotstuff_tpu/ops/pallas_msm.py);
+# the verdict has none (jnp code in the reference's verify graphs).
 SOURCES = {
+    "decompress": ("hotstuff_tpu_torch/csrc/decompress.cu", "hotstuff_tpu/ops/pallas_msm.py:248"),
     "sqrt_pow": ("hotstuff_tpu_torch/csrc/sqrt_pow.cu", "hotstuff_tpu/ops/pallas_msm.py:248"),
     "msm_partials_signed": (
         "hotstuff_tpu_torch/csrc/msm_partials.cu",
@@ -74,7 +85,14 @@ SOURCES = {
     ),
     "msm_combine": ("hotstuff_tpu_torch/csrc/msm_combine.cu", "hotstuff_tpu/ops/pallas_msm.py:562"),
     "msm_partials": ("hotstuff_tpu_torch/csrc/msm_partials.cu", "hotstuff_tpu/ops/pallas_msm.py:483"),
+    "verdict": ("hotstuff_tpu_torch/csrc/verdict.cu", None),
 }
+# The main path's kernels (phase 3), and a warm cached QC's launches (phase 6).
+PATH_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "msm_partials", "verdict")
+WARM_QC_LAUNCHES = {"decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "msm_partials": 0,
+                    "msm_combine": 2, "verdict": 1}
+# Phase 7's ceiling per warm QC: aten ops the profiler sees, and device ops.
+MAX_ATEN_OPS, MAX_DEVICE_OPS = 400, 60
 
 # The bound. These kernels are bound by int32 multiply-adds (IMAD): a field
 # mul is a 20 x 20 limb schoolbook, 400 IMADs. A Hopper SM issues 64 int32
@@ -85,6 +103,10 @@ IMAD_PER_MUL = 400
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 MULS_PADD, MULS_PDOUBLE, MULS_SQRT_POW = 9, 8, 269
+# A decompressed lane: y^2 and d y^2, the root, r^2 v, x y. A lane whose
+# root is fixed by sqrt(-1) takes one more, left out: the bound is at most
+# 1/275 low, which does not flatter the kernel.
+MULS_DECOMPRESS = 2 + MULS_SQRT_POW + 2 + 1
 # K3's serial chain, in field muls that each wait for the one before: a
 # point add's muls run in 3 dependent stages ({a, b, T 2d, 2Z Z'}, then
 # (T 2d) T', then the four products), a doubling's in 2.
@@ -116,8 +138,10 @@ def nvidia_smi(query: str) -> str:
 def ptxas_usage() -> dict[str, tuple[int, int, int]]:
     """(registers, stack bytes, spill store bytes) of each kernel, by its
     ``PROFILER_NAMES`` key, from ptxas' report in the build log."""
-    mangled = {"sqrt_pow": "sqrt_pow_kernel", "msm_partials_signed": "msm_partials_kernelILb1",
-               "msm_partials": "msm_partials_kernelILb0", "msm_combine": "msm_combine_kernel"}
+    mangled = {"decompress": "decompress_kernel",
+               "sqrt_pow": "sqrt_pow_kernel", "msm_partials_signed": "msm_partials_kernelILb1",
+               "msm_partials": "msm_partials_kernelILb0", "msm_combine": "msm_combine_kernel",
+               "verdict": "verdict_kernel"}
     usage, current = {}, None
     for _, log in kernel_build.build_log.values():
         for line in log.splitlines():
@@ -243,6 +267,17 @@ def usage_note(name: str) -> str:
     return f"{regs} registers, {stack} B stack, {spill} B spill stores"
 
 
+def with_invalid_rows(y: torch.Tensor, sign: torch.Tensor):
+    """Copies of a batch's y limbs and signs with its last three lanes (the
+    padding of a QC's batch) made invalid: a non-square y = 2, y = 1 (x = 0)
+    with sign 1, and y = p - 1 (x = 0, top limb full) with sign 1."""
+    y, sign = y.clone(), sign.clone()
+    for i, (val, s) in enumerate([(2, 0), (1, 1), (fe.P - 1, 1)]):
+        y[-1 - i] = torch.from_numpy(fe._int_to_limbs(val)).to(y.device)
+        sign[-1 - i] = s
+    return y, sign
+
+
 def kernel_checks(qc: QC, backend, device, imad_per_s: float):
     digest = qc.digest().data
     msgs = [digest] * len(qc.votes)
@@ -250,11 +285,13 @@ def kernel_checks(qc: QC, backend, device, imad_per_s: float):
     sigs = [sig.data for _, sig in qc.votes]
     packed, mf, mc = ov.prepare_batch_cached(msgs, pubs, sigs, backend._cache)
     packed_d = torch.from_numpy(packed).to(device)
-    _, pts_f, digits_f, pts_c, digits_c = ov.cached_inputs(packed_d, backend._cache.array, mf)
-    y_f = ov._enc_to_y_limbs(packed_d[:mf, :32].to(torch.int32))
-    u, v = cv.decompress_ratio(y_f)
+    ok_f, pts_f, digits_f, pts_c, digits_c = ov.cached_inputs(packed_d, backend._cache.array, mf)
+    fresh = packed_d[:mf].to(torch.int32)
+    y_f, sign_f = ov._enc_to_y_limbs(fresh[:, :32]), fresh[:, 65]
     packed_u, m_u = ov.prepare_batch(msgs, pubs, sigs)
-    _, pts_u, digits_u = ov.uncached_inputs(torch.from_numpy(packed_u).to(device))
+    packed_ud = torch.from_numpy(packed_u).to(device)
+    ok_u, pts_u, digits_u = ov.uncached_inputs(packed_ud)
+    y_u, sign_u = ov._unpack_device(packed_ud)[:2]
     digits_f, digits_c = digits_f.contiguous(), digits_c.contiguous()
     torch.cuda.synchronize()
 
@@ -267,7 +304,30 @@ def kernel_checks(qc: QC, backend, device, imad_per_s: float):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
-    # K1 at the fresh R lanes.
+    # K1, the decompression: at the fresh R lanes of the cached QC and at
+    # every lane of the uncached batch, each with invalid rows.
+    for y, sign in ((y_f, sign_f), (y_u, sign_u)):
+        y, sign = with_invalid_rows(y, sign)
+        m = y.shape[0]
+        ok_k, pts_k = mk.decompress(y, sign)
+        (ok_p, pts_p), plain = timed_plain(lambda: mk.decompress_plain(y, sign))
+        err = max_abs_err(pts_k, pts_p)
+        check(err == 0, f"decompress [{m}] points differ from the plain version by {err}")
+        check(torch.equal(ok_k, ok_p), f"decompress [{m}] ok differs from the plain version")
+        check(not ok_k[-3:].any() and bool(ok_k[:-3].all()),
+              f"decompress [{m}]: the invalid rows passed or a valid one failed")
+        b, by = bound_ms(MULS_DECOMPRESS * m, m * (80 + 4 + 1 + 320), imad_per_s)
+        ms, ev, pr = kernel_ms(lambda: mk.decompress(y, sign), 20, PROFILER_NAMES["decompress"])
+        grid, threads = mk.decompress_geometry(m)
+        notes.append(f"decompress y [{m}, 20]: grid {grid} x {threads} threads, "
+                     f"{usage_note('decompress')}; {ms:.4f} ms (events {ev:.4f}, profiler {pr:.4f}; "
+                     f"plain {plain:.1f} ms, bound {b:.4f} ms)")
+        if m == mf:  # the JSON row: the cached QC's shape, one launch a QC
+            rows["decompress"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                      bound_by=by, shape=f"y [{m}, 20]")
+
+    # The root alone, off the path since the decompression took it in.
+    u, v = cv.decompress_ratio(y_f)
     m = u.shape[0]
     r_k = mk.sqrt_pow(u, v)
     r_p, plain = timed_plain(lambda: mk.sqrt_pow_plain(u, v))
@@ -342,6 +402,39 @@ def kernel_checks(qc: QC, backend, device, imad_per_s: float):
             rows["msm_combine"] = dict(max_abs_err=err_c, ms=c_ms, plain_ms=comb_plain,
                                        bound_ms=cb, bound_by=cby,
                                        shape=f"partials [{nb}, {w}, 4, 20]")
+    # The verdict: the cached QC's two MSM results and the uncached one's,
+    # then rejections (one point alone, an ok with one False in its last
+    # lane), each against the plain version.
+    acc_f, acc_c = mk.msm_signed(pts_f, digits_f), mk.msm_signed(pts_c, digits_c)
+    acc_u = mk.msm(pts_u, digits_u)
+    ok_last_false = ok_f.clone()
+    ok_last_false[-1] = False
+    cases = [
+        ("cached", ok_f, (acc_f, acc_c), True),
+        ("uncached", ok_u, (acc_u,), True),
+        ("one MSM of two", ok_f, (acc_f,), False),
+        ("ok with one False", ok_last_false, (acc_f, acc_c), False),
+    ]
+    for name, ok, pts, want in cases:
+        got = mk.verdict(ok, *pts)
+        plain_v, plain = timed_plain(lambda: mk.verdict_plain(ok, *pts))
+        err = abs(int(got) - int(plain_v))
+        check(err == 0 and bool(got) == want,
+              f"verdict ({name}): kernel {bool(got)}, plain {bool(plain_v)}, expected {want}")
+        if name not in ("cached", "uncached"):
+            continue
+        m = ok.shape[0]
+        muls = (MULS_PADD if len(pts) == 2 else 0) + 3 * MULS_PDOUBLE
+        b, by = bound_ms(muls, m + 320 * len(pts) + 1, imad_per_s)
+        ms, ev, pr = kernel_ms(lambda: mk.verdict(ok, *pts), 20, PROFILER_NAMES["verdict"])
+        chain = (STAGES_PADD if len(pts) == 2 else 0) + 3 * STAGES_PDOUBLE
+        notes.append(f"verdict ok [{m}], {len(pts)} point(s): grid (1, 1) x 128 threads, "
+                     f"{usage_note('verdict')}; {ms:.4f} ms (events {ev:.4f}, profiler {pr:.4f}; "
+                     f"plain {plain:.1f} ms, bound {b:.6f} ms; serial chain {chain} dependent "
+                     f"mul stages)")
+        if name == "cached":
+            rows["verdict"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                                   shape=f"ok [{m}], a, b [4, 20]")
     return rows, notes, (mf, mc, m_u)
 
 
@@ -375,9 +468,10 @@ def qc_timing(qcs, committee, backend, device, reps: int):
 # -- phase 7: where the time goes ----------------------------------------------
 
 
-def profile_qc(qc: QC, committee, reps: int) -> list[str]:
+def profile_qc(qc: QC, committee, reps: int) -> tuple[list[str], float, float]:
     """Trace ``reps`` warm verifies of one QC; per QC: wall (profiler on),
-    device busy time, and device time and count by kernel name."""
+    device busy time, and device time and count by kernel name. Also
+    returns the aten ops and the device ops per QC."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -407,7 +501,7 @@ def profile_qc(qc: QC, committee, reps: int) -> list[str]:
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
     for name, durs in top:
         lines.append(f"  {sum(durs) / reps:8.3f} ms  x{len(durs) / reps:6.0f}  {name[:90]}")
-    return lines
+    return lines, host_ops / reps, launches
 
 
 def main() -> int:
@@ -456,8 +550,8 @@ def main() -> int:
           f"rejected, uncached QC accepted in {mp['wall_s']:.2f} s; first verifies "
           + ", ".join(f"{x:.1f}" for x in mp["first_ms"])
           + f" ms, uncached {mp['uncached_ms']:.1f} ms; launches {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
+    for name in PATH_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the main path")
 
     # 4. small input against the oracle
     oracle_check(device)
@@ -475,13 +569,23 @@ def main() -> int:
     print(f"warm QC.verify (N={VALIDATORS}, {n_sigs} sigs, cached path) on {card}: "
           f"{wall:.2f} ms per QC, {wall * 1e3 / n_sigs:.1f} us/sig; host prep {host:.2f} ms, "
           f"stream span (events; includes host-issue gaps) {span:.2f} ms")
+    mk.reset_launches()
+    qcs[0].verify(committee)
+    warm = dict(mk.LAUNCHES)
+    check(warm == WARM_QC_LAUNCHES, f"a warm QC launched {warm}, expected {WARM_QC_LAUNCHES}")
+    print(f"warm QC launches: {warm}")
 
     # 7. where the time goes
-    for line in profile_qc(qcs[0], committee, reps=3):
+    lines, aten_ops, device_ops = profile_qc(qcs[0], committee, reps=3)
+    for line in lines:
         print(line)
+    check(aten_ops <= MAX_ATEN_OPS and device_ops <= MAX_DEVICE_OPS,
+          f"a warm QC ran {aten_ops:.0f} aten ops and {device_ops:.0f} device ops "
+          f"(at most {MAX_ATEN_OPS} and {MAX_DEVICE_OPS})")
 
     kernels = []
-    for name in ("sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials"):
+    for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
+                 "verdict"):
         source, replaces = SOURCES[name]
         row = rows[name]
         kernels.append({

@@ -20,7 +20,8 @@
 // Everything here is inlined and passed by value, so ptxas keeps a point's
 // 80 words in registers; an out-of-line call with reference arguments put
 // every point operation through the stack. These are one thread's helpers
-// (K1, K2, K4); K3's warp-cooperative counterparts are in fe25519_warp.cuh.
+// (sqrt_pow.cu, K2, K4); the warp-cooperative counterparts of K3, the
+// decompression and the verdict are in fe25519_warp.cuh.
 #pragma once
 
 #include <cstdint>
@@ -48,13 +49,26 @@ static __constant__ uint32_t D2[NLIMB] = {
     4441, 5527, 1289, 3383, 3773, 6315, 2574, 4944, 20,  7,
     5196, 7655, 3886, 1856, 7270, 8092, 5855, 3810, 438, 72};
 
-// 2p in limbs (ops/field.py TWO_P_LIMBS).
+// d and sqrt(-1) mod p in canonical limbs (ops/field.py D_LIMBS,
+// SQRT_M1_LIMBS), for decompression.
+static __constant__ uint32_t D[NLIMB] = {
+    6307, 6859, 4740, 5787, 5982, 3157, 1287, 2472, 4106, 3,
+    6694, 3827, 1943, 928,  3635, 8142, 2927, 1905, 219,  164};
+static __constant__ uint32_t SQRT_M1[NLIMB] = {
+    176,  4213, 2514, 7222, 3150, 4668, 5311, 213,  792,  6522,
+    5609, 7159, 2451, 1664, 3245, 7137, 4033, 1026, 201,  87};
+
+// p and 2p in limbs (ops/field.py P_LIMBS, TWO_P_LIMBS).
+__device__ __forceinline__ int32_t p_limb(int k) {
+  return k == 0 ? 8173 : (k == NLIMB - 1 ? 255 : 8191);
+}
+
 __device__ __forceinline__ uint32_t two_p(int k) {
   return k == 0 ? 16346u : (k == NLIMB - 1 ? 510u : 16382u);
 }
 
-__device__ __forceinline__ uint32_t asr(uint32_t a) {
-  return static_cast<uint32_t>(static_cast<int32_t>(a) >> RADIX);
+__device__ __forceinline__ uint32_t asr(uint32_t a, int bits = RADIX) {
+  return static_cast<uint32_t>(static_cast<int32_t>(a) >> bits);
 }
 
 __device__ __forceinline__ void carry_pass(Fe& a) {

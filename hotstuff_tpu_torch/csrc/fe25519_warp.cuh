@@ -1,4 +1,5 @@
-// GF(2^255-19) and Edwards25519 point arithmetic on a whole warp, for K3.
+// GF(2^255-19) and Edwards25519 point arithmetic on a whole warp, for K3,
+// the decompression (decompress.cu) and the verdict (verdict.cu).
 //
 // The same radix-2^13 x 20-limb arithmetic as fe25519.cuh, and limb for
 // limb the same results, with a field element spread over a warp: lane k
@@ -64,6 +65,56 @@ __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b, int k) {
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b, int k) {
   return carry(a + fe25519::two_p(k) - b, k);
 }
+
+__device__ __forceinline__ uint32_t neg(uint32_t a, int k) {
+  return carry(fe25519::two_p(k) - a, k);
+}
+
+// Lanes 0..19 hold the limbs; lanes 20..31 hold copies.
+__device__ __forceinline__ bool holds_limb() { return (threadIdx.x & 31) < NLIMB; }
+
+// The fully reduced form in [0, p), as ops/field.py canonical: six carry
+// passes, the bits at and above 2^255 folded back as *19 twice, then one
+// conditional subtract of p with its borrow chain, comparing the int32
+// limbs as torch compares them. The carries and folds run on every lane;
+// a >= p is decided by two ballots (the top limb that differs from p's
+// decides, and a equals p if none does); the subtract's borrow chain walks
+// the limbs by broadcast, 20 shuffles. Every branch depends on ballots or
+// broadcasts only, so the warp never diverges.
+__device__ __forceinline__ uint32_t canonical(uint32_t a, int k) {
+  a = carry(carry(a, k), k);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t hi = __shfl_sync(kFull, fe25519::asr(a, 8), NLIMB - 1);
+    if (k == 0) a += hi * 19;
+    if (k == NLIMB - 1) a &= 0xFF;
+    a = carry(a, k);
+  }
+  const int32_t s = static_cast<int32_t>(a), pk = fe25519::p_limb(k);
+  const unsigned gt = __ballot_sync(kFull, holds_limb() && s > pk);
+  const unsigned ne = __ballot_sync(kFull, holds_limb() && s != pk);
+  if (ne != 0 && !((gt >> (31 - __clz(static_cast<int>(ne)))) & 1u)) return a;  // a < p
+  int32_t borrow = 0, out = 0;
+#pragma unroll
+  for (int j = 0; j < NLIMB; ++j) {
+    const int32_t t = __shfl_sync(kFull, s - pk, j) - borrow;
+    borrow = t < 0;
+    if (j == k) out = t + (borrow << fe25519::RADIX);
+  }
+  return static_cast<uint32_t>(out);
+}
+
+// Every limb of a equals b's (both canonical); the same on every lane.
+__device__ __forceinline__ bool all_equal(uint32_t a, uint32_t b) {
+  return __ballot_sync(kFull, holds_limb() && a != b) == 0;
+}
+
+// ops/field.py eq and is_zero.
+__device__ __forceinline__ bool eq(uint32_t a, uint32_t b, int k) {
+  return all_equal(canonical(a, k), canonical(b, k));
+}
+
+__device__ __forceinline__ bool is_zero(uint32_t a, int k) { return all_equal(canonical(a, k), 0u); }
 
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b, int k) {
   // Column k takes a_i b_{k-i} for i <= k; column k + 20 takes a_i

@@ -3,16 +3,20 @@
 // Replaces the Pallas kernel _sqrt_pow_kernel (hotstuff_tpu/ops/pallas_msm.py
 // :233, addition chain _pow_p58 at :217), reached through sqrt_pow (:264).
 // It reads and writes the [m, 20] int32 layout that sqrt_pow exposes, so the
-// reference's [m, 20] <-> [20, m] transpose (:259) is gone.
+// reference's [m, 20] <-> [20, m] transpose (:259) is gone. The QC path
+// decompresses with decompress.cu, which runs the same chain inside it; this
+// root-only kernel stays as the counterpart of the reference's sqrt_pow.
 //
 // Bound on this card: int32 multiply-adds. Each lane runs 269 field muls
 // (5 before the chain, 251 squarings and 11 muls in it, 2 after), i.e.
 // 107,600 IMADs; the inputs and the output are 240 bytes a lane.
 //
 // Design: one thread per lane, the 20 limbs of every live value in
-// registers, the addition chain unrolled except for the squaring runs,
-// which loop. Lanes are independent, so nothing is shared between threads.
+// registers, the addition chain (pow_p58.cuh) unrolled except for the
+// squaring runs, which loop. Lanes are independent, so nothing is shared
+// between threads.
 #include "fe25519.cuh"
+#include "pow_p58.cuh"
 
 using namespace fe25519;
 
@@ -20,28 +24,9 @@ namespace {
 
 constexpr int kMaxThreads = 128;
 
-// x^(2^k) by k squarings.
-__device__ Fe sqk(Fe x, int k) {
-#pragma unroll 1
-  for (int i = 0; i < k; ++i) x = fe_mul(x, x);
-  return x;
-}
-
-// w^(2^252 - 3), the chain of _pow_p58.
-__device__ Fe pow_p58(const Fe& w) {
-  const Fe f1 = w;
-  const Fe f2 = fe_mul(sqk(f1, 1), f1);
-  const Fe f4 = fe_mul(sqk(f2, 2), f2);
-  const Fe f5 = fe_mul(sqk(f4, 1), f1);
-  const Fe f10 = fe_mul(sqk(f5, 5), f5);
-  const Fe f20 = fe_mul(sqk(f10, 10), f10);
-  const Fe f40 = fe_mul(sqk(f20, 20), f20);
-  const Fe f80 = fe_mul(sqk(f40, 40), f40);
-  const Fe f160 = fe_mul(sqk(f80, 80), f80);
-  const Fe f240 = fe_mul(sqk(f160, 80), f80);
-  const Fe f250 = fe_mul(sqk(f240, 10), f10);
-  return fe_mul(sqk(f250, 2), w);
-}
+struct ThreadField {
+  __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) const { return fe_mul(a, b); }
+};
 
 __global__ void __launch_bounds__(kMaxThreads)
     sqrt_pow_kernel(const int32_t* __restrict__ u, const int32_t* __restrict__ v,
@@ -50,11 +35,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (lane >= m) return;
   const Fe uu = fe_load(u + static_cast<size_t>(lane) * NLIMB);
   const Fe vv = fe_load(v + static_cast<size_t>(lane) * NLIMB);
-  const Fe v2 = fe_mul(vv, vv);
-  const Fe v3 = fe_mul(v2, vv);
-  const Fe v7 = fe_mul(fe_mul(v3, v3), vv);
-  const Fe w = fe_mul(uu, v7);
-  fe_store(r + static_cast<size_t>(lane) * NLIMB, fe_mul(fe_mul(uu, v3), pow_p58(w)));
+  fe_store(r + static_cast<size_t>(lane) * NLIMB, pow_p58::root_candidate(ThreadField{}, uu, vv));
 }
 
 }  // namespace

@@ -11,9 +11,8 @@ torch int32 shares jnp int32's semantics here: ``>>`` is arithmetic, ``&``
 is two's complement and products wrap mod 2^32. ``.at[].set/add`` become
 slice assignment on a fresh tensor (never on a caller's view).
 
-These functions run on any torch device: the plain versions of the CUDA
-kernels are built from them, and the non-kernel steps of verification
-(decompression's checks, the cofactor test) run them on the card.
+These functions run on any torch device. The plain versions of the CUDA
+kernels are built from them; on the card, verification runs the kernels.
 """
 
 from __future__ import annotations

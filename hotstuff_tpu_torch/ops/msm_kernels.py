@@ -1,14 +1,21 @@
 """Wrappers of the hand-written CUDA kernels, with their plain versions.
 
-Port of ``hotstuff_tpu/ops/pallas_msm.py``. Four kernels, sources in
+Port of ``hotstuff_tpu/ops/pallas_msm.py``. Sources in
 ``hotstuff_tpu_torch/csrc/``:
 
-- K1 ``sqrt_pow`` (``sqrt_pow.cu``) replaces ``_sqrt_pow_kernel``;
+- K1 ``decompress`` (``decompress.cu``) replaces ``_sqrt_pow_kernel``
+  together with the field code of ``curve.decompress`` around it: the
+  whole decompression in one kernel. ``sqrt_pow`` (``sqrt_pow.cu``) is the
+  root alone, the reference's ``sqrt_pow``; the verify path no longer
+  calls it;
 - K2 ``msm_partials(signed=True)`` (``msm_partials.cu``) replaces
   ``_make_partials_kernel_signed``;
 - K3 ``msm_combine`` (``msm_combine.cu``) replaces ``_make_combine_kernel``;
 - K4 ``msm_partials(signed=False)`` (``msm_partials.cu``) replaces
-  ``_partials_kernel``.
+  ``_partials_kernel``;
+- ``verdict`` (``verdict.cu``): all(ok) and the cofactor-8 identity check
+  of the MSM result, jnp code in the reference (``ops/verify.py``), no
+  Pallas kernel.
 
 ``msm_signed``/``msm`` chain K2/K4 into K3, as the reference's ``_build``
 functions chain its two ``pallas_call``s.
@@ -32,9 +39,12 @@ import torch
 from . import curve as cv
 from . import field as fe
 
-LAUNCHES = {"sqrt_pow": 0, "msm_partials_signed": 0, "msm_partials": 0, "msm_combine": 0}
+LAUNCHES = {
+    "decompress": 0, "sqrt_pow": 0, "msm_partials_signed": 0, "msm_partials": 0,
+    "msm_combine": 0, "verdict": 0,
+}
 
-# Lanes per CTA (one thread per lane) of K1 and of the partials kernels;
+# Lanes per CTA (one thread per lane) of sqrt_pow and of the partials kernels;
 # the combine then sums m / block partials per window. ``block`` arguments
 # override them, as the reference's lanes per grid step.
 SQRT_POW_BLOCK = 128
@@ -51,6 +61,8 @@ MAX_WINDOWS = 64
 PARTIALS_WINDOW_GROUP = 2
 # Threads per CTA of the combine (four warps), one CTA a window.
 COMBINE_THREADS = 128
+# Threads per CTA of the decompression: four warps, one lane a warp.
+DECOMPRESS_THREADS = 128
 
 
 def partials_geometry(m: int, n_windows: int, block: int) -> tuple[tuple[int, int], int]:
@@ -68,11 +80,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(t: torch.Tensor, shape: tuple, what: str) -> torch.Tensor:
+def decompress_geometry(m: int) -> tuple[tuple[int, int], int]:
+    """(grid, threads per CTA) of the decompression kernel."""
+    return (-(-m // (DECOMPRESS_THREADS // 32)), 1), DECOMPRESS_THREADS
+
+
+def _check(t: torch.Tensor, shape: tuple, what: str, dtype=torch.int32) -> torch.Tensor:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
     return t.contiguous()
@@ -88,7 +105,35 @@ def _launch(source: str, fn: str, counter: str, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-# -- K1: decompression root ------------------------------------------------
+# -- K1: decompression -------------------------------------------------------
+
+
+def decompress_plain(y: torch.Tensor, sign: torch.Tensor):
+    """``curve.decompress`` with K1's root chain: (ok [m], points [m, 4, 20])."""
+    return cv.decompress(y, sign, root_fn=sqrt_pow_plain)
+
+
+def decompress(y: torch.Tensor, sign: torch.Tensor):
+    """K1 for y limbs int32 [m, 20] and signs int32 [m] in {0, 1}: (ok bool
+    [m], points int32 [m, 4, 20]), limb for limb ``decompress_plain``.
+    Failed lanes keep their point, as the plain version's do."""
+    if y.device.type == "cpu":
+        return decompress_plain(y, sign)
+    m = y.shape[0]
+    if m < 1:
+        raise ValueError(f"decompress: bad shape m={m}")
+    y = _check(y, (m, fe.NLIMB), "decompress y")
+    sign = _check(sign, (m,), "decompress sign")
+    ok = torch.empty(m, dtype=torch.bool, device=y.device)
+    pts = torch.empty((m, 4, fe.NLIMB), dtype=torch.int32, device=y.device)
+    _launch(
+        "decompress", "decompress_launch", "decompress",
+        y.data_ptr(), sign.data_ptr(), ok.data_ptr(), pts.data_ptr(), m,
+    )
+    return ok, pts
+
+
+# -- sqrt_pow: the decompression root alone ----------------------------------
 
 
 def _pow_p58(w: torch.Tensor) -> torch.Tensor:
@@ -123,7 +168,8 @@ def sqrt_pow_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def sqrt_pow(u: torch.Tensor, v: torch.Tensor, block: int | None = None) -> torch.Tensor:
-    """K1 for [m, 20] int32 inputs: the ``root_fn`` of ``field.sqrt_ratio``."""
+    """The root chain for [m, 20] int32 inputs, as a ``root_fn`` of
+    ``field.sqrt_ratio``."""
     if u.device.type == "cpu":
         return sqrt_pow_plain(u, v)
     m = u.shape[0]
@@ -250,3 +296,32 @@ def msm(points: torch.Tensor, digits: torch.Tensor, block: int | None = None) ->
     if points.device.type == "cpu":
         return cv.msm(points, digits)
     return msm_combine(msm_partials(points, digits, signed=False, block=block))
+
+
+# -- the verdict -----------------------------------------------------------------
+
+
+def verdict_plain(ok: torch.Tensor, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """all(ok) and 8 (a + b) == O (8 a with no ``b``), as a 0-dim bool: the
+    tail of the reference's verify graphs, in their order."""
+    acc = a if b is None else cv.point_add(a, b)
+    zero = cv.is_identity(cv.mul_by_cofactor(acc[None, ...]))[0]
+    return ok.all() & zero
+
+
+def verdict(ok: torch.Tensor, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """The verdict kernel for ok bool [m] and points int32 [4, 20]: a 0-dim
+    bool on the card, read by the caller (the one sync of a verify)."""
+    if a.device.type == "cpu":
+        return verdict_plain(ok, a, b)
+    ok = _check(ok, (ok.shape[0],), "verdict ok", torch.bool)
+    a = _check(a, (4, fe.NLIMB), "verdict a")
+    if b is not None:
+        b = _check(b, (4, fe.NLIMB), "verdict b")
+    out = torch.empty((), dtype=torch.bool, device=a.device)
+    _launch(
+        "verdict", "verdict_launch", "verdict",
+        ok.data_ptr(), ok.shape[0], a.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(),
+    )
+    return out

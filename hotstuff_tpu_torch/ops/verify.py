@@ -8,8 +8,9 @@ semantics, reference ``crypto/src/lib.rs:206-219``)
 with fresh random 128-bit z_i. The host does byte parsing, strictness
 checks (canonical s < L, canonical y), SHA-512 challenges and mod-L scalar
 arithmetic, and packs one uint8 array per batch (one host-to-device copy).
-The card does the curve math: decompression (root by kernel K1), the MSMs
-(K2 + K3 on the cached path, K4 + K3 uncached) and the cofactor check.
+The card does the curve math, each step one kernel: decompression (K1),
+the MSMs (K2 + K3 on the cached path, K4 + K3 uncached) and the verdict
+(all lanes decompressed and the cofactor-8 identity check).
 
 The packed layouts and their host prep are byte-identical to the
 reference's, so both verify the same batch from the same bytes.
@@ -70,17 +71,15 @@ def uncached_inputs(packed: torch.Tensor):
     """Unpack and decompress (K1) a packed [m, 65] batch already on its
     device: (ok [m], points [m, 4, 20], digits [64, m]), the MSM's inputs."""
     y_limbs, signs, digits = _unpack_device(packed)
-    ok, pts = cv.decompress(y_limbs, signs, root_fn=mk.sqrt_pow)
+    ok, pts = mk.decompress(y_limbs, signs)
     return ok, pts, digits
 
 
 def run_uncached(packed: torch.Tensor) -> torch.Tensor:
-    """Decompress + MSM (K1, K4 + K3) + cofactor check of a packed [m, 65]
-    batch already on its device; a 0-dim bool tensor."""
+    """Decompress + MSM (K1, K4 + K3) + verdict of a packed [m, 65] batch
+    already on its device; a 0-dim bool tensor."""
     ok, pts, digits = uncached_inputs(packed)
-    acc = mk.msm(pts, digits)
-    zero = cv.is_identity(cv.mul_by_cofactor(acc[None, ...]))[0]
-    return ok.all() & zero
+    return mk.verdict(ok, mk.msm(pts, digits))
 
 
 def _pad_to_pow2(n: int, minimum: int = 4) -> int:
@@ -181,7 +180,7 @@ MAX_ROWS = 65536  # row indices ship as 16 bits
 def _decompress_packed(packed: torch.Tensor):
     """Decompress k packed encodings ([k, 33] uint8: 32 enc + sign)."""
     b = packed.to(torch.int32)
-    return cv.decompress(_enc_to_y_limbs(b[:, :32]), b[:, 32], root_fn=mk.sqrt_pow)
+    return mk.decompress(_enc_to_y_limbs(b[:, :32]), b[:, 32])
 
 
 class CacheFull(RuntimeError):
@@ -298,7 +297,7 @@ def cached_inputs(packed: torch.Tensor, cache_arr: torch.Tensor, mf: int):
     b = packed.to(torch.int32)
     fresh, cached = b[:mf], b[mf:]
     y_limbs = _enc_to_y_limbs(fresh[:, :32])
-    ok_f, pts_f = cv.decompress(y_limbs, fresh[:, 65], root_fn=mk.sqrt_pow)
+    ok_f, pts_f = mk.decompress(y_limbs, fresh[:, 65])
     digits_f = fresh[:, 32:65].T - 8  # [33, mf] signed
 
     rows = cached[:, 64] | (cached[:, 65] << 8)
@@ -311,9 +310,7 @@ def run_cached(packed: torch.Tensor, cache_arr: torch.Tensor, mf: int) -> torch.
     """Verify a packed uint8[mf + mc, 66] split batch already on its
     device against the cache rows; a 0-dim bool tensor."""
     ok_f, pts_f, digits_f, pts_c, digits_c = cached_inputs(packed, cache_arr, mf)
-    acc = cv.point_add(mk.msm_signed(pts_f, digits_f), mk.msm_signed(pts_c, digits_c))
-    zero = cv.is_identity(cv.mul_by_cofactor(acc[None, ...]))[0]
-    return ok_f.all() & zero
+    return mk.verdict(ok_f, mk.msm_signed(pts_f, digits_f), mk.msm_signed(pts_c, digits_c))
 
 
 def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):

@@ -63,10 +63,12 @@ def _build_key(capability: tuple[int, int]) -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
+        "decompress_launch": [vp, vp, vp, vp, i, vp],
         "sqrt_pow_launch": [vp, vp, vp, i, i, vp],
         "msm_partials_signed_launch": [vp, vp, vp, i, i, i, i, vp],
         "msm_partials_unsigned_launch": [vp, vp, vp, i, i, i, i, vp],
         "msm_combine_launch": [vp, vp, vp, vp, i, i, vp],
+        "verdict_launch": [vp, i, vp, vp, vp, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)

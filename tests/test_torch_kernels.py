@@ -6,8 +6,9 @@ of JAX, so it runs on a GPU host that has only the port's dependencies:
     python -m pytest tests/test_torch_kernels.py -q
 
 Tolerance: limb-exact between each kernel and its plain version (they
-repeat the same arithmetic in the same order); MSM results also equal the
-RFC 8032 oracle by compressed encoding.
+repeat the same arithmetic in the same order), the decompression's ok flags
+and the verdict's bool equal; MSM results also equal the RFC 8032 oracle by
+compressed encoding, and the decompression's ok flags the oracle's.
 """
 
 import random
@@ -22,6 +23,7 @@ from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
 from hotstuff_tpu_torch.ops import curve as cv
 from hotstuff_tpu_torch.ops import field as fe
 from hotstuff_tpu_torch.ops import msm_kernels as mk
+from tests.torch_inputs import VERDICT_CASES, decompress_inputs, verdict_case
 
 pytestmark = pytest.mark.cuda
 
@@ -47,6 +49,34 @@ def oracle_points(m, seed):
         rows.append(np.stack([fe._int_to_limbs(xa), fe._int_to_limbs(ya), fe.ONE_LIMBS,
                               fe._int_to_limbs(xa * ya % ref.P)]))
     return pts, np.stack(rows).astype(np.int32)
+
+
+# one lane, one ragged CTA, the fresh-R width, the uncached width; valid
+# points, non-squares, x = 0 with sign 1, y = 1 and y = p - 1 mixed in
+@pytest.mark.parametrize("m", [1, 8, 1024, 2048])
+def test_decompress_matches_plain(cuda, m):
+    y, sign, valid = decompress_inputs(m, m)
+    ty, ts = torch.from_numpy(y).to(cuda), torch.from_numpy(sign).to(cuda)
+    before = mk.LAUNCHES["decompress"]
+    ok, pts = mk.decompress(ty, ts)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["decompress"] == before + 1
+    ok_p, pts_p = mk.decompress_plain(ty, ts)
+    assert torch.equal(pts, pts_p) and torch.equal(ok, ok_p)
+    np.testing.assert_array_equal(ok.cpu().numpy(), valid)
+
+
+@pytest.mark.parametrize("with_b", [True, False])
+@pytest.mark.parametrize("m", [4, 1024, 2048])
+@pytest.mark.parametrize("case", VERDICT_CASES)
+def test_verdict_matches_plain(cuda, case, m, with_b):
+    ok, a, b, total, want = verdict_case(case, m)
+    pts = (a, b) if with_b else (total,)
+    tok = torch.from_numpy(ok).to(cuda)
+    tpts = [torch.from_numpy(p).to(cuda) for p in pts]
+    got = mk.verdict(tok, *tpts)
+    assert got.device.type == "cuda" and got.shape == () and got.dtype == torch.bool
+    assert bool(got) == bool(mk.verdict_plain(tok, *tpts)) == want
 
 
 # below one CTA's lanes; the fresh-R width; a ragged last CTA
@@ -119,7 +149,8 @@ def test_warm_cached_batch_launches_k2_and_k3_twice(cuda):
     mk.reset_launches()
     backend.verify_batch([digest.data] * 6, pubs, sigs)
     assert mk.LAUNCHES == {
-        "sqrt_pow": 1, "msm_partials_signed": 2, "msm_combine": 2, "msm_partials": 0,
+        "decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "msm_combine": 2,
+        "msm_partials": 0, "verdict": 1,
     }
 
 
@@ -127,6 +158,11 @@ def test_wrappers_check_their_inputs(cuda):
     u = torch.zeros((8, 20), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         mk.sqrt_pow(u, u)
+    with pytest.raises(ValueError):
+        mk.decompress(u, torch.zeros(8, dtype=torch.int32, device=cuda))
+    pt = torch.zeros((4, 20), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mk.verdict(torch.ones(8, dtype=torch.int32, device=cuda), pt)
     pts = torch.zeros((8, 4, 20), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         mk.msm_partials(pts, torch.zeros((64, 4), dtype=torch.int32, device=cuda), signed=True)
@@ -145,4 +181,6 @@ def test_backend_on_card_accepts_and_rejects(cuda):
     with pytest.raises(crypto.CryptoError):
         backend.verify_batch([digest.data] * 5, pubs, bad)
     CudaBackend(cache=False).verify_batch([digest.data] * 5, pubs, sigs)
-    assert all(count > 0 for count in mk.LAUNCHES.values()), mk.LAUNCHES
+    path = {name: count for name, count in mk.LAUNCHES.items() if name != "sqrt_pow"}
+    assert all(count > 0 for count in path.values()), mk.LAUNCHES
+    assert mk.LAUNCHES["sqrt_pow"] == 0  # the decompression runs the root itself
