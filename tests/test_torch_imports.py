@@ -1,9 +1,11 @@
 """The port stands alone: importing every ``hotstuff_tpu_torch`` module
-loads neither ``jax`` nor any module of the JAX package, and its entry
-points, called without ``device`` on a host without CUDA, raise instead of
-running on the CPU. Checked in a fresh interpreter, since this test
-process itself imports the JAX package."""
+loads neither ``jax`` nor any module of the JAX package, ``chip_smoke.py``
+imports neither, and the port's entry points, called without ``device`` on
+a host without CUDA, raise instead of running on the CPU. Checked in a
+fresh interpreter, since this test process itself imports the JAX
+package."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -32,6 +34,7 @@ if not torch.cuda.is_available():
         ("DevicePointCache", lambda: verify.DevicePointCache()),
         ("verify_batch_device", lambda: verify.verify_batch_device([b"m"], [b"k" * 32], [b"s" * 64])),
         ("get_backend", crypto.get_backend),
+        ("set_backend cuda-batched", lambda: crypto.set_backend("cuda-batched")),
     ]:
         try:
             call()
@@ -53,8 +56,23 @@ def probe():
 def test_port_imports_no_jax_and_no_reference_module():
     result = probe()
     assert "hotstuff_tpu_torch.ops.msm_kernels" in result["modules"]
-    assert "hotstuff_tpu_torch.consensus.aggregator" in result["modules"]
+    for name in ("consensus.aggregator", "consensus.messages", "consensus.cert_arena",
+                 "consensus.decode_arena", "crypto.batching", "utils.serde"):
+        assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
         for what, message in result["raised"].items():
             assert message is not None and "CUDA" in message, what
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_module():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module or "")
+    top = {name.split(".")[0] for name in imported}
+    assert "hotstuff_tpu_torch" in top
+    assert not top & {"jax", "jaxlib", "hotstuff_tpu"}, sorted(imported)

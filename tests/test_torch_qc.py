@@ -29,9 +29,9 @@ N = 10
 
 @pytest.fixture
 def backends(monkeypatch):
-    """The port on its CPU device, the reference on its cpu backend; the
-    reference's process-wide certificate arena off, so that every QC is
-    judged afresh."""
+    """The port on its CPU device, the reference on its cpu backend; both
+    packages' process-wide certificate arenas off (one switch), so that
+    every QC is judged afresh."""
     monkeypatch.setenv("HOTSTUFF_CERT_ARENA", "0")
     monkeypatch.setattr(crypto, "_BACKEND", None)
     monkeypatch.setattr(jcrypto, "_BACKEND", None)
