@@ -71,19 +71,40 @@ unguarded (any failure ends the run with a non-zero exit):
       ``CudaBackend``, the fused flush (ms, µs/sig) against its four QCs
       one by one and against the inner calls of the four pooled v2 QCs,
       the widest flush, the TC verify, the v2 decode of the proposal, and
-      the serial ``CpuBackend`` on one QC on the card's host.
+      the serial ``CpuBackend`` on one QC on the card's host;
+9. the consensus engine on the card: an in-process committee of N = 100
+   port engines (``Consensus.spawn``) on 127.0.0.1, keys from ``--seed``,
+   stake 1 each (quorum 67), ``timeout_delay`` 30 s, batched vote
+   verification, wire v2, an in-memory store each, mempool channels sunk,
+   under ``set_backend("cuda-batched")`` with the cert arena on. After the
+   first commit on every engine, 10 rounds are timed: every engine must
+   commit the same digest each round, no timeout may fire and no
+   verification may meet ``BackendUnavailable``; the launch counts are
+   zeroed before and read after (decompression, K2, K3 and the verdict
+   must launch, K4 must not), with ``BatchingBackend``'s inner calls,
+   requests and signatures per round. Then 3 rounds under
+   ``torch.profiler`` for the card's busy share; then the same committee
+   (keys from ``--seed`` + 1) under the serial ``cpu`` backend as the
+   yardstick; then the cached kernels at the committee's width (one
+   N = 100 QC: mf = mc = 128) against their plain versions, limb for limb.
+   The soft ``RLIMIT_NOFILE`` is raised to the hard one before the port's
+   network package is imported (a full mesh of 100 engines needs about
+   20,000 descriptors; the connection budget takes 35% of the soft limit).
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3, ``launches_node_path`` from phase 8, the
-``fused_*`` and ``widest_*`` keys from 8d) and ``{"ok": true, "device": {...}}``.
+``fused_*`` and ``widest_*`` keys from 8d, ``launches_committee`` and the
+``committee_*`` keys from phase 9) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
 import random
+import resource
 import shutil
 import subprocess
 import sys
@@ -93,10 +114,27 @@ import time
 import numpy as np
 import torch
 
+
+def raise_fd_limit() -> tuple[int, int, int]:
+    """Raise the soft ``RLIMIT_NOFILE`` to the hard one (capped at Linux's
+    default ``nr_open``). Returns (soft before, soft after, hard)."""
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    target = hard if hard != resource.RLIM_INFINITY else 1 << 20
+    try:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (max(soft, target), hard))
+    except (ValueError, OSError):
+        pass
+    return soft, resource.getrlimit(resource.RLIMIT_NOFILE)[0], hard
+
+
+# Before the port's network package is imported: its connection budget is
+# computed from the soft limit once, at import.
+FD_LIMITS = raise_fd_limit()
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from hotstuff_tpu_torch import crypto  # noqa: E402
-from hotstuff_tpu_torch.consensus import cert_arena, errors  # noqa: E402
+from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
 from hotstuff_tpu_torch.consensus.decode_arena import decode_shared  # noqa: E402
@@ -116,10 +154,12 @@ from hotstuff_tpu_torch.consensus.messages import (  # noqa: E402
 from hotstuff_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
 from hotstuff_tpu_torch.crypto.batching import BatchingBackend  # noqa: E402
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend  # noqa: E402
+from hotstuff_tpu_torch.network.budget import BUDGET  # noqa: E402
 from hotstuff_tpu_torch.ops import curve as cv  # noqa: E402
 from hotstuff_tpu_torch.ops import field as fe  # noqa: E402
 from hotstuff_tpu_torch.ops import msm_kernels as mk  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
+from hotstuff_tpu_torch.store import Store  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder  # noqa: E402
 from hotstuff_tpu_torch.utils.kernel_times import PROFILER_NAMES, kernel_ms  # noqa: E402
@@ -170,6 +210,21 @@ VALIDATORS = 1000
 ROUNDS = 3
 # Phase 8's view change: the round its timeouts and TC are for.
 TC_ROUND = ROUNDS + 2
+# Phase 9's committee: BASELINE.json config 2 (a 100-node single-host
+# committee, QC batch verification on one card), the shape of the
+# reference's ``benchmark/committee_scale.py --mode protocol``.
+COMMITTEE_N = 100
+COMMITTEE_ROUNDS = 10
+COMMITTEE_TRACED_ROUNDS = 3
+COMMITTEE_TIMEOUT_MS = 30_000
+# Base ports of the card's committee and the CPU yardstick's: below the
+# ephemeral ranges of the hosts it ran on (Linux's default 32768-60999, and
+# 16000-65535 on an H100 host), so that no outgoing connection of an
+# engine spawned earlier holds a later engine's port.
+COMMITTEE_PORTS = (10000, 10200)
+# Seconds allowed for the first commit everywhere, and for each round after.
+COMMITTEE_BOOT_S, COMMITTEE_ROUND_S = 75.0, 20.0
+PHASE9_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 
 
 class SmokeFailure(RuntimeError):
@@ -528,11 +583,25 @@ def qc_timing(qcs, committee, backend, device, reps: int):
 # -- phase 7: where the time goes ----------------------------------------------
 
 
+def device_times(prof) -> tuple[dict[str, list[float]], int]:
+    """The profiler's device ops' durations (ms) by name, and its count of
+    aten ops on the host."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, list[float]] = {}
+    host_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append((e.time_range.end - e.time_range.start) / 1e3)
+        elif e.name.startswith("aten::"):
+            host_ops += 1
+    return by_name, host_ops
+
+
 def profile_qc(qc: QC, committee, reps: int) -> tuple[list[str], float, float]:
     """Trace ``reps`` warm verifies of one QC; per QC: wall (profiler on),
     device busy time, and device time and count by kernel name. Also
     returns the aten ops and the device ops per QC."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -542,14 +611,7 @@ def profile_qc(qc: QC, committee, reps: int) -> tuple[list[str], float, float]:
             qc.verify(committee)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / reps
-    by_name: dict[str, list[float]] = {}
-    host_ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dur = (e.time_range.end - e.time_range.start) / 1e3
-            by_name.setdefault(e.name, []).append(dur)
-        elif e.name.startswith("aten::"):
-            host_ops += 1
+    by_name, host_ops = device_times(prof)
     h2d = sum(len(d) for name, d in by_name.items() if "HtoD" in name) / reps
     busy = sum(sum(d) for d in by_name.values()) / reps
     launches = sum(len(d) for d in by_name.values()) / reps
@@ -824,6 +886,184 @@ def node_path(keys, committee, qcs, seed: int):
     return phase_launches, numbers, fused_batch, batched
 
 
+# -- phase 9: the consensus engine on the card ----------------------------------
+
+
+async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int = 0) -> dict:
+    """An in-process committee of ``n`` port engines under the active
+    backend, as ``benchmark/committee_scale.py --mode protocol`` of the
+    reference runs one. Waits for the first commit on every engine, times
+    ``rounds`` more (every engine must commit the same digest each round,
+    no timeout may fire, no verification may fail unjudged), then traces
+    ``traced`` rounds with the profiler. Tears every engine down."""
+    rng = random.Random(seed)
+    keys = [crypto.generate_keypair(seed=rng.randbytes(32))[:2] for _ in range(n)]
+    members = Committee({pk: Authority(1, ("127.0.0.1", base_port + i))
+                         for i, (pk, _) in enumerate(keys)})
+    params = Parameters(timeout_delay=COMMITTEE_TIMEOUT_MS, batch_vote_verification=True)
+    backend = crypto.get_backend()
+    engines, commits, sinks = [], [], []
+    out = {"n": n, "quorum": members.quorum_threshold()}
+
+    async def next_round(limit_s: float, what: str):
+        try:
+            got = await asyncio.wait_for(asyncio.gather(*[q.get() for q in commits]), limit_s)
+        except asyncio.TimeoutError:
+            raise SmokeFailure(f"{what}: not every engine committed within {limit_s:.0f} s") from None
+        check(len({b.digest() for b in got}) == 1 and len({b.round for b in got}) == 1,
+              f"{what}: the engines committed different blocks")
+        return got[0]
+
+    def counters():
+        timeouts = sum(e.core.timeouts_fired for e in engines)
+        failures = sum(e.core.backend_failures for e in engines)
+        inner = getattr(backend, "inner", None)
+        return dict(timeouts=timeouts, failures=failures,
+                    inner_calls=getattr(backend, "inner_calls", 0),
+                    requests=getattr(backend, "fused_requests", 0),
+                    cert_requests=getattr(backend, "cert_requests", 0),
+                    dispatches=getattr(inner, "dispatches", 0), sigs=getattr(inner, "sigs", 0))
+
+    # Spawned in descending leader order: the leader of round 1 proposes as
+    # soon as it starts, and the votes for its block, sent best effort to
+    # the leader of round 2, then find that leader listening (the
+    # proposal's reliable sender retries the one engine spawned after it).
+    # In another order a vote sent before its receiver listens can be lost,
+    # and round 2 waits out the 30 s timeout (seed 1 does so at N = 100).
+    secret = dict(keys)
+    try:
+        t = time.perf_counter()
+        for pk in reversed(members.sorted_keys()):
+            sk = secret[pk]
+            rx_mempool, tx_mempool, tx_commit = asyncio.Queue(), asyncio.Queue(), asyncio.Queue()
+
+            async def drain(q=tx_mempool):
+                while True:
+                    await q.get()
+
+            sinks.append(asyncio.create_task(drain()))
+            engines.append(await Consensus.spawn(
+                pk, members, params, crypto.SignatureService(sk), Store(),
+                rx_mempool, tx_mempool, tx_commit,
+            ))
+            commits.append(tx_commit)
+        first = await next_round(COMMITTEE_BOOT_S, "the first commit")
+        out["boot_s"] = time.perf_counter() - t
+        out["first_round"] = first.round
+
+        before = counters()
+        mk.reset_launches()
+        t = time.perf_counter()
+        committed = [await next_round(COMMITTEE_ROUND_S, f"round {i + 1} of {rounds}")
+                     for i in range(rounds)]
+        out["ms_per_round"] = (time.perf_counter() - t) * 1e3 / rounds
+        out["launches"] = dict(mk.LAUNCHES)
+        after = counters()
+        out.update({key: after[key] - before[key] for key in after})
+        out["rounds"] = [b.round for b in committed]
+        check(out["timeouts"] == 0, f"{out['timeouts']} timeouts fired in the measured rounds")
+        check(out["failures"] == 0, f"{out['failures']} verifications met BackendUnavailable")
+        # A round that timed out while the engines booted has no block, so
+        # the committed rounds rise but may skip one.
+        check(all(a < b for a, b in zip([first.round] + out["rounds"], out["rounds"])),
+              f"the measured commits are of rounds {out['rounds']}")
+
+        if traced:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for i in range(traced):
+                    await next_round(COMMITTEE_ROUND_S, f"traced round {i + 1}")
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            durations = device_times(prof)[0].values()
+            busy, ops = sum(map(sum, durations)), sum(map(len, durations))
+            check(busy > 0, "the profiler saw no device time in the committee's rounds")
+            out.update(traced_wall_ms=wall / traced, traced_busy_ms=busy / traced,
+                       traced_device_ops=ops / traced)
+        check(sum(e.core.backend_failures for e in engines) == 0,
+              "a verification met BackendUnavailable")
+    finally:
+        for e in engines:
+            await e.shutdown()
+        for task in sinks:
+            task.cancel()
+    return out
+
+
+def committee_phase(seed: int, card: str, device, imad_per_s: float):
+    """Phase 9. Returns (launches in the measured rounds, the kernel rows at
+    the committee's width)."""
+    cert_arena.reset()
+    crypto.set_backend("cuda-batched")
+    batched = crypto.get_backend()
+    check(isinstance(batched, BatchingBackend) and isinstance(batched.inner, CudaBackend),
+          f"cuda-batched installed {batched!r}")
+    print(f"committee: RLIMIT_NOFILE soft {FD_LIMITS[0]} raised to {FD_LIMITS[1]} (hard "
+          f"{FD_LIMITS[2]}); connection budget cap {BUDGET.cap}")
+    t = time.perf_counter()
+    gpu = asyncio.run(committee(COMMITTEE_N, seed, COMMITTEE_PORTS[0], COMMITTEE_ROUNDS,
+                                traced=COMMITTEE_TRACED_ROUNDS))
+    gpu_s = time.perf_counter() - t
+    launches, r = gpu["launches"], COMMITTEE_ROUNDS
+    for name in PHASE9_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched in the committee's rounds")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"the committee launched K4 or the root alone: {launches}")
+    check(gpu["dispatches"] > 0 and gpu["dispatches"] == gpu["inner_calls"],
+          f"{gpu['dispatches']} CudaBackend calls against {gpu['inner_calls']} inner calls")
+    # Each inner call is one cached-path verify on the card: decompress 1
+    # (the fresh R), K2 and K3 2 each, the verdict 1. Decompressions beyond
+    # that are committee keys entering the card's cache.
+    calls = gpu["inner_calls"]
+    check(launches["verdict"] == calls and launches["msm_partials_signed"] == 2 * calls
+          and launches["msm_combine"] == 2 * calls and launches["decompress"] >= calls,
+          f"{calls} inner calls launched {launches}")
+    print(f"committee on {card}: N={gpu['n']} (quorum {gpu['quorum']}) under cuda-batched, "
+          f"first commit (round {gpu['first_round']}) after {gpu['boot_s']:.2f} s, then {r} rounds "
+          f"{gpu['rounds'][0]}-{gpu['rounds'][-1]}, every engine committing the same digest, no "
+          f"timeout: {gpu['ms_per_round']:.2f} ms per committed round, "
+          f"{1e3 / gpu['ms_per_round']:.3f} rounds/s; phase {gpu_s:.1f} s")
+    print(f"committee on {card}: per round {gpu['inner_calls'] / r:.2f} BatchingBackend inner calls "
+          f"(= CudaBackend verifications), {gpu['requests'] / r:.2f} requests "
+          f"({gpu['cert_requests'] / r:.2f} of them v2 cert jobs), {gpu['sigs'] / r:.1f} signatures; "
+          "launches per round " + ", ".join(f"{k} {v / r:.2f}" for k, v in sorted(launches.items()))
+          + f" (each inner call: decompress 1, K2 2, K3 2, verdict 1; "
+          f"{launches['decompress'] - calls} decompressions filled the key cache)")
+    print(f"committee on {card}: {COMMITTEE_TRACED_ROUNDS} traced rounds (profiler on): wall "
+          f"{gpu['traced_wall_ms']:.2f} ms per round, device busy {gpu['traced_busy_ms']:.3f} ms "
+          f"per round ({100 * gpu['traced_busy_ms'] / gpu['traced_wall_ms']:.2f}% busy, idle "
+          f"{100 * (1 - gpu['traced_busy_ms'] / gpu['traced_wall_ms']):.2f}%), "
+          f"{gpu['traced_device_ops']:.0f} device ops per round")
+
+    # The yardstick: the same committee shape under the serial CPU backend.
+    crypto.set_backend("cpu")
+    cert_arena.reset()
+    t = time.perf_counter()
+    cpu = asyncio.run(committee(COMMITTEE_N, seed + 1, COMMITTEE_PORTS[1], COMMITTEE_ROUNDS))
+    print(f"committee on the card's host, serial CpuBackend (signer: "
+          f"{'OpenSSL' if crypto._HAVE_PYCA else 'pure-Python RFC 8032'}): first commit after "
+          f"{cpu['boot_s']:.2f} s, {r} rounds {cpu['ms_per_round']:.2f} ms per committed round, "
+          f"{1e3 / cpu['ms_per_round']:.3f} rounds/s; phase {time.perf_counter() - t:.1f} s")
+    crypto.set_backend(batched)
+
+    # The cached kernels at the committee's width: one N = 100 QC.
+    keys, members = make_committee(COMMITTEE_N, seed)
+    qc = make_qc(keys, members, 1, seed)
+    check(batched.inner._cache.ensure([pk.data for pk in members.sorted_keys()]),
+          "a committee key failed to decompress")
+    rows, notes, shapes = kernel_checks(qc_batch(qc), batched.inner, device, imad_per_s,
+                                        uncached=False)
+    check(shapes[:2] == (128, 128), f"an N = 100 QC ran at mf, mc = {shapes[:2]}")
+    print(f"kernels vs plain on the card at the committee's width (limb-exact), "
+          f"{len(qc.votes)} signatures, mf={shapes[0]} mc={shapes[1]}:")
+    for line in notes:
+        print("  " + line)
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -965,6 +1205,9 @@ def main() -> int:
     for line in wide_notes:
         print("  " + line)
 
+    # 9. the consensus engine on the card
+    committee_launches, committee_rows = committee_phase(args.seed, card, device, imad_per_s)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict"):
@@ -976,11 +1219,14 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"],
             "launches_node_path": node_launches[name],
+            "launches_committee": committee_launches[name],
         }
-        for prefix, extra in (("fused", fused_rows), ("widest", wide_rows)):
+        for prefix, extra in (("fused", fused_rows), ("widest", wide_rows),
+                              ("committee", committee_rows)):
             row_x = extra.get(name)
             if row_x is not None:
-                entry["shape"] += f"; {prefix} flush {row_x['shape']}"
+                width = "committee" if prefix == "committee" else f"{prefix} flush"
+                entry["shape"] += f"; {width} {row_x['shape']}"
                 entry.update({f"{prefix}_{key}": row_x[key]
                               for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         kernels.append(entry)

@@ -1,9 +1,13 @@
-"""Consensus layer of the port: the certificate path of ``hotstuff_tpu/consensus``
-(committee, messages and their wire codec, aggregation, the certificate
-caches and the shared decode arena)."""
+"""Consensus layer of the port: the 2-chain HotStuff engine of
+``hotstuff_tpu/consensus`` (core, proposer, synchronizer, helper, leader
+election, the crypto bridge and the ``Consensus`` root), its committee and
+messages with their wire codec, aggregation, the certificate caches and
+the shared decode arena. State sync and the compactor stay in the
+reference for now."""
 
 from .aggregator import Aggregator, QCMaker, TCMaker
-from .config import Authority, Committee
+from .config import Authority, Committee, Parameters
+from .consensus import Consensus
 from .messages import QC, TC, Block, CertificateCache, SeatTable, Timeout, Vote
 
 __all__ = [
@@ -12,6 +16,8 @@ __all__ = [
     "Block",
     "CertificateCache",
     "Committee",
+    "Consensus",
+    "Parameters",
     "QC",
     "QCMaker",
     "SeatTable",

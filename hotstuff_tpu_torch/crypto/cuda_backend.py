@@ -18,6 +18,8 @@ The error contract is the reference's (``tpu_backend.py:64-106``):
 
 from __future__ import annotations
 
+import threading
+
 from hotstuff_tpu_torch.ops import verify as ops_verify
 from hotstuff_tpu_torch.utils.device import resolve
 
@@ -34,6 +36,9 @@ class CudaBackend:
         # Committee point cache: validator keys decompress once and stay on
         # the card; per QC only R decompresses and the signed MSMs run.
         self._cache = ops_verify.DevicePointCache(device=self.device) if cache else None
+        # Counted under a lock: the crypto bridge's workers may call
+        # ``verify_batch`` from two threads at once.
+        self._count_lock = threading.Lock()
         self.dispatches = 0
         self.sigs = 0
 
@@ -42,8 +47,9 @@ class CudaBackend:
             raise CryptoError("batch length mismatch")
         if not msgs:
             return
-        self.dispatches += 1
-        self.sigs += len(msgs)
+        with self._count_lock:
+            self.dispatches += 1
+            self.sigs += len(msgs)
         try:
             if self._cache is None:
                 ok = ops_verify.verify_batch_device(msgs, pubs, sigs, device=self.device)

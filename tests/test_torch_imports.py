@@ -57,7 +57,13 @@ def test_port_imports_no_jax_and_no_reference_module():
     result = probe()
     assert "hotstuff_tpu_torch.ops.msm_kernels" in result["modules"]
     for name in ("consensus.aggregator", "consensus.messages", "consensus.cert_arena",
-                 "consensus.decode_arena", "crypto.batching", "utils.serde"):
+                 "consensus.decode_arena", "crypto.batching", "utils.serde",
+                 "consensus.core", "consensus.consensus", "consensus.crypto_bridge",
+                 "consensus.helper", "consensus.leader", "consensus.mempool_driver",
+                 "consensus.proposer", "consensus.statesync", "consensus.synchronizer",
+                 "consensus.timer", "mempool.synchronizer", "mempool.dataplane.messages",
+                 "network.budget", "network.receiver", "network.reliable_sender",
+                 "network.simple_sender", "store", "utils.quorum", "utils.tasks"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
