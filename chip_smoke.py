@@ -89,25 +89,70 @@ unguarded (any failure ends the run with a non-zero exit):
    N = 100 QC: mf = mc = 128) against their plain versions, limb for limb.
    The soft ``RLIMIT_NOFILE`` is raised to the hard one before the port's
    network package is imported (a full mesh of 100 engines needs about
-   20,000 descriptors; the connection budget takes 35% of the soft limit).
+   20,000 descriptors; the connection budget takes 35% of the soft limit);
+10. the mempool and the node:
+   a. the SHA-512 kernel (``csrc/sha512.cu``) against its plain version on
+      the card, byte for byte, and both against ``hashlib``: lengths 0, 1,
+      32, 96, 111, 112, 127, 128, 239, 240 and 300 in one drain, 128 lanes
+      of 0-1024 B, 1024 lanes of 96 B (the challenge input); then against
+      ``hashlib`` alone (the plain version walks blocks in Python) on the
+      reference digest bench's grid, drains of 8, 32 and 128 messages of
+      512 B, 15 kB and 500 kB, and on 128 mempool batches of 12-30
+      transactions of 512 B;
+   b. for each drain of the grid: the kernel's time (CUDA events and the
+      profiler, as phase 5), the pinned host-to-device copy apart, the
+      whole ``sha512_32_batch`` and ``hashlib`` on the card's host, the
+      bound and ptxas' usage; the SASS instruction counts of the kernel
+      beside the bound's model;
+   c. BASELINE.json config 1, the reference's ``fab local`` setting: four
+      port ``Node``s in this process, each on a ``LogEngine`` store in a
+      temporary directory, keys from ``--seed``, timeout 1 s, 15 kB
+      batches sealed at 10 ms at the latest, device digests on, the
+      backend chosen by ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched`` at the
+      first ``get_backend()``; four port clients (``node.client``) at 250
+      tx/s of 512 B each. After the first payload commit on every node the
+      counts are zeroed and 10 s are measured. It fails unless every node
+      commits the same sequence of payload blocks, every committed digest
+      reads back from all four stores and is the SHA-512/32 of the stored
+      bytes, every sample transaction sent up to 1 s before the window's
+      end is in a committed batch of the node it was sent to, no timeout
+      fires in the window, ``sha512`` launches (a drain of more than one
+      batch) and so do the QC kernels (decompression, K2, K3, verdict),
+      and K4 does not. It prints committed tx/s, rounds/s, p50 and p95
+      send-to-commit latency of the sample transactions, the drain sizes,
+      the batches hashed on the card and on the host, the card's
+      verifications by signature count and each kernel's launches; then
+      holds the cached path's kernels (decompression, K2, K3, verdict)
+      against their plain versions, limb for limb and timed as in phase 5,
+      at every (mf, mc) the window ran them at, each on a batch the path
+      verified at that width (a QC of 3 signatures: mf = mc = 4), and the
+      digest kernel against its plain version at the widest drain the node
+      path gave it, timed there.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
-``launches`` from phase 3, ``launches_node_path`` from phase 8, the
-``fused_*`` and ``widest_*`` keys from 8d, ``launches_committee`` and the
-``committee_*`` keys from phase 9) and ``{"ok": true, "device": {...}}``.
+``launches`` from phase 3, so 0 for ``sha512``, which phase 3 does not
+run; ``launches_node_path`` from phase 8, the ``fused_*`` and ``widest_*``
+keys from 8d, ``launches_committee`` and the ``committee_*`` keys from
+phase 9, ``launches_config1`` and the ``config1_*`` keys from phase 10c:
+the QC kernels' at its widest width, ``sha512``'s at its widest drain)
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextvars
+import hashlib
 import json
+import logging
 import os
 import random
 import resource
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -154,10 +199,17 @@ from hotstuff_tpu_torch.consensus.messages import (  # noqa: E402
 from hotstuff_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
 from hotstuff_tpu_torch.crypto.batching import BatchingBackend  # noqa: E402
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend  # noqa: E402
+from hotstuff_tpu_torch.mempool import Authority as MempoolAuthority  # noqa: E402
+from hotstuff_tpu_torch.mempool import Committee as MempoolCommittee  # noqa: E402
+from hotstuff_tpu_torch.mempool import Parameters as MempoolParameters  # noqa: E402
+from hotstuff_tpu_torch.mempool import processor  # noqa: E402
+from hotstuff_tpu_torch.mempool.messages import decode as decode_batch  # noqa: E402
+from hotstuff_tpu_torch.mempool.messages import encode_batch  # noqa: E402
 from hotstuff_tpu_torch.network.budget import BUDGET  # noqa: E402
 from hotstuff_tpu_torch.ops import curve as cv  # noqa: E402
 from hotstuff_tpu_torch.ops import field as fe  # noqa: E402
 from hotstuff_tpu_torch.ops import msm_kernels as mk  # noqa: E402
+from hotstuff_tpu_torch.ops import sha512 as sha  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
 from hotstuff_tpu_torch.store import Store  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
@@ -176,6 +228,8 @@ SOURCES = {
     "msm_combine": ("hotstuff_tpu_torch/csrc/msm_combine.cu", "hotstuff_tpu/ops/pallas_msm.py:562"),
     "msm_partials": ("hotstuff_tpu_torch/csrc/msm_partials.cu", "hotstuff_tpu/ops/pallas_msm.py:483"),
     "verdict": ("hotstuff_tpu_torch/csrc/verdict.cu", None),
+    # No Pallas kernel either: jnp under jax.jit (``_compiled``).
+    "sha512": ("hotstuff_tpu_torch/csrc/sha512.cu", "hotstuff_tpu/ops/sha512.py:149"),
 }
 # The main path's kernels (phase 3), and a warm cached QC's launches (phase 6).
 PATH_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "msm_partials", "verdict")
@@ -226,6 +280,36 @@ COMMITTEE_PORTS = (10000, 10200)
 COMMITTEE_BOOT_S, COMMITTEE_ROUND_S = 75.0, 20.0
 PHASE9_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 
+# Phase 10a/b: the reference digest test's lengths and the two-block
+# boundary, and the reference digest bench's grid (benchmark/
+# digest_bench.py:56-57): drains of 8, 32 and 128 batches of 512 B, 15 kB
+# and 500 kB.
+SHA_LENGTHS = (0, 1, 32, 96, 111, 112, 127, 128, 239, 240, 300)
+DIGEST_DRAINS, DIGEST_SIZES = (8, 32, 128), (512, 15_000, 500_000)
+# The int32 instructions of one 128-byte SHA-512 block a lane (the model of
+# csrc/sha512.cu's note): 80 rounds of 28 (Sigma1 and Sigma0 three rotates
+# each at two funnel shifts a rotate and two LOP3s for the xors, ch and maj
+# two LOP3s each, t1 as two 3-term adds and a = t1 + Sigma0 + maj and
+# e = d + t1 one each, an IADD3 and an IADD3.X a 64-bit add), 64 schedule
+# steps of 20 (sigma0 and sigma1 two rotates and a shift of two SHFs each
+# plus two LOP3s, then two 3-term adds), the feed-forward's 8 adds, and two
+# byte swaps (PRMT) a loaded word. All on the int32 pipe, taken at the
+# IMAD rate below (64 a clock an SM).
+SHA512_INT_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 8 * 2 + 16 * 2
+# Phase 10c: BASELINE.json config 1, the reference's ``fab local`` setting
+# (benchmark/local.py:46-53, benchmark/fabfile.py:24-29): 4 nodes, timeout
+# 1 s, 15 kB batches sealed at 10 ms at the latest, 1000 tx/s of 512 B
+# over four clients. Ports 10300-10329: consensus, then transactions, then
+# mempool, below the H100 host's ephemeral range and clear of phase 9's.
+NODE_N, NODE_PORTS = 4, 10300
+NODE_TIMEOUT_MS, NODE_BATCH_BYTES, NODE_BATCH_DELAY_MS = 1_000, 15_000, 10
+NODE_RATE, NODE_TX_BYTES = 1_000, 512
+# Seconds: for the first payload commit on every node, the measured window,
+# the tail after the clients stop, and how long before the window's end a
+# sample must have been sent to be required in a committed batch.
+NODE_BOOT_S, NODE_WINDOW_S, NODE_DRAIN_S, NODE_SAMPLE_SLACK_S = 30.0, 10.0, 2.5, 1.0
+PHASE10_KERNELS = ("sha512", "decompress", "msm_partials_signed", "msm_combine", "verdict")
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -250,7 +334,7 @@ def ptxas_usage() -> dict[str, tuple[int, int, int]]:
     mangled = {"decompress": "decompress_kernel",
                "sqrt_pow": "sqrt_pow_kernel", "msm_partials_signed": "msm_partials_kernelILb1",
                "msm_partials": "msm_partials_kernelILb0", "msm_combine": "msm_combine_kernel",
-               "verdict": "verdict_kernel"}
+               "verdict": "verdict_kernel", "sha512": "sha512_kernel"}
     usage, current = {}, None
     for _, log in kernel_build.build_log.values():
         for line in log.splitlines():
@@ -1064,6 +1148,418 @@ def committee_phase(seed: int, card: str, device, imad_per_s: float):
     return launches, rows
 
 
+# -- phase 10: the mempool and the node ------------------------------------------
+
+
+def sha512_bound(lengths, imad_per_s: float) -> tuple[float, str]:
+    """The least time of a drain: its int32 instructions (the model's count
+    a 128-byte block, every lane's padded blocks) over the int32 rate, or
+    its bytes (messages, offsets and lengths in, digests out) over HBM."""
+    blocks = sum(sha.blocks_of(n) for n in lengths)
+    t_ops = blocks * SHA512_INT_OPS_PER_BLOCK / imad_per_s
+    t_bytes = (sum(lengths) + 16 * len(lengths) + 64 * len(lengths)) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sass_counts() -> str:
+    """Instructions of ``sha512_kernel`` in the built library's SASS, in
+    all and by the int32 opcodes the model counts (``cuobjdump``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    lib = kernel_build.load_all()["sha512"]._name
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "sha512_kernel" in line
+        elif inside and line.strip().startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                op = words[0].split(".")[0]
+                counts[op] = counts.get(op, 0) + 1
+    total = sum(counts.values())
+    return (f"{total} instructions, SHF {counts.get('SHF', 0)}, LOP3 {counts.get('LOP3', 0)}, "
+            f"IADD3 {counts.get('IADD3', 0)}, PRMT {counts.get('PRMT', 0)} (the model: "
+            f"{SHA512_INT_OPS_PER_BLOCK} a block)")
+
+
+def digest_drain(lanes: int, size: int, rng: random.Random) -> list[bytes]:
+    return [rng.randbytes(size) for _ in range(lanes)]
+
+
+def batch_drain(rng: random.Random) -> list[bytes]:
+    """128 mempool batches of 12-30 transactions of 512 B (6-15 kB each)."""
+    return [encode_batch([b"\x01" + rng.randbytes(511) for _ in range(rng.randint(12, 30))])
+            for _ in range(128)]
+
+
+def sha512_against_plain(msgs, device, what: str) -> tuple[int, float]:
+    """The kernel against its plain version on the card, byte for byte, and
+    both against hashlib. Returns (max abs err, plain ms)."""
+    buf = sha.pack(msgs).to(device)
+    got = sha.sha512(*sha.unpack(buf, len(msgs)))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain = sha.sha512_plain(*sha.unpack(buf, len(msgs)))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = max_abs_err(got, plain)
+    check(err == 0, f"sha512 ({what}) differs from its plain version by {err}")
+    want = [hashlib.sha512(m).digest() for m in msgs]
+    check([bytes(r) for r in got.cpu().numpy()] == want, f"sha512 ({what}) differs from hashlib")
+    return err, plain_ms
+
+
+def sha512_times(msgs, device, imad_per_s: float, iters: int) -> dict:
+    """Kernel time (events and profiler), the H2D copy apart, the whole
+    ``sha512_32_batch``, and ``hashlib`` on the same drain, with the bound."""
+    pinned = sha.pack(msgs, pin=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    copies = []
+    for _ in range(5):
+        start.record()
+        buf = pinned.to(device, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        copies.append(start.elapsed_time(end))
+    views = sha.unpack(buf, len(msgs))
+    ms, ev, pr = kernel_ms(lambda: sha.sha512(*views), iters, PROFILER_NAMES["sha512"])
+    want = [hashlib.sha512(m).digest()[:32] for m in msgs]
+    e2e, host = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        got = sha.sha512_32_batch(msgs)
+        e2e.append((time.perf_counter() - t) * 1e3)
+        check(got == want, "sha512_32_batch differs from hashlib")
+        t = time.perf_counter()
+        [hashlib.sha512(m).digest()[:32] for m in msgs]
+        host.append((time.perf_counter() - t) * 1e3)
+    b, by = sha512_bound([len(m) for m in msgs], imad_per_s)
+    return dict(ms=ms, events_ms=ev, profiler_ms=pr, h2d_ms=float(np.median(copies)),
+                e2e_ms=float(np.median(e2e)), hashlib_ms=float(np.median(host)), bound_ms=b,
+                bound_by=by, nbytes=sum(map(len, msgs)))
+
+
+def digest_checks(seed: int, device, imad_per_s: float) -> list[str]:
+    """10a and 10b: the kernel against its plain version and hashlib, and
+    its times, on the reference digest bench's grid."""
+    rng = random.Random(seed * 7919 + 10)
+    notes = []
+    for what, msgs in (
+        ("lengths " + ", ".join(map(str, SHA_LENGTHS)), [rng.randbytes(n) for n in SHA_LENGTHS]),
+        ("128 lanes of 0-1024 B", [rng.randbytes(rng.randrange(0, 1025)) for _ in range(128)]),
+        ("1024 lanes of 96 B (R || A || M)", digest_drain(1024, 96, rng)),
+    ):
+        err, plain_ms = sha512_against_plain(msgs, device, what)
+        notes.append(f"sha512 {what}: kernel = plain version = hashlib, byte for byte "
+                     f"(plain {plain_ms:.1f} ms)")
+    grid = [(f"{lanes} x {size} B", digest_drain(lanes, size, rng))
+            for lanes in DIGEST_DRAINS for size in DIGEST_SIZES]
+    grid.append(("128 mempool batches of 12-30 x 512-B txs", batch_drain(rng)))
+    regs, stack, spill = ptxas_usage()["sha512"]
+    for what, msgs in grid:
+        got = sha.sha512_batch(msgs)
+        check(got == [hashlib.sha512(m).digest() for m in msgs], f"sha512 ({what}) != hashlib")
+        big = sum(map(len, msgs)) > 16_000_000
+        t = sha512_times(msgs, device, imad_per_s, iters=5 if big else 20)
+        notes.append(
+            f"sha512 drain {what} ({t['nbytes'] / 1e6:.3f} MB) = hashlib: kernel {t['ms']:.4f} ms "
+            f"(events {t['events_ms']:.4f}, profiler {t['profiler_ms']:.4f}; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}), H2D copy {t['h2d_ms']:.4f} ms, "
+            f"sha512_32_batch {t['e2e_ms']:.3f} ms, hashlib {t['hashlib_ms']:.3f} ms; "
+            f"{regs} registers, {stack} B stack, {spill} B spill stores")
+    return notes
+
+
+async def config1(seed: int, device) -> dict:
+    """Four port nodes at BASELINE config 1 (``fab local``) in this process,
+    four port clients at 250 tx/s each; see phase 10c in the docstring."""
+    from hotstuff_tpu_torch.node import Committee as NodeCommittee
+    from hotstuff_tpu_torch.node import Node, Secret
+    from hotstuff_tpu_torch.node import Parameters as NodeParameters
+    from hotstuff_tpu_torch.node.client import run_client
+
+    rng = random.Random(seed * 7919 + 11)
+    secrets = [Secret(*crypto.generate_keypair(seed=rng.randbytes(32))) for _ in range(NODE_N)]
+    base = NODE_PORTS
+    consensus = Committee({s.name: Authority(1, ("127.0.0.1", base + i))
+                           for i, s in enumerate(secrets)})
+    mempool = MempoolCommittee({s.name: MempoolAuthority(
+        1, ("127.0.0.1", base + 10 + i), ("127.0.0.1", base + 20 + i))
+        for i, s in enumerate(secrets)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nodes_")
+    committee_file, params_file = f"{tmp}/committee.json", f"{tmp}/parameters.json"
+    NodeCommittee(consensus, mempool).write(committee_file)
+    NodeParameters(
+        Parameters(timeout_delay=NODE_TIMEOUT_MS),
+        MempoolParameters(batch_size=NODE_BATCH_BYTES, max_batch_delay=NODE_BATCH_DELAY_MS,
+                          device_batch_digests=True),
+    ).write(params_file)
+    # The certificate path's backend as a user picks it: the variable, read
+    # at the first ``get_backend()``.
+    os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
+    crypto._BACKEND = None
+    cert_arena.reset()
+
+    # The node a log line comes from: every task of node i (and client i,
+    # which sends to node i) runs in a context where ``node_of`` is i.
+    node_of: contextvars.ContextVar[int] = contextvars.ContextVar("node")
+    records: list[tuple[int, logging.LogRecord]] = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append((node_of.get(-1), record))
+
+    def in_context_of(i: int, coro, name: str | None = None) -> asyncio.Task:
+        ctx = contextvars.copy_context()
+        ctx.run(node_of.set, i)
+        return asyncio.create_task(coro, name=name, context=ctx)
+
+    capture = Capture()
+    levels = {}
+    for name in ("client", "mempool"):
+        logger = logging.getLogger(name)
+        levels[name] = logger.level
+        logger.addHandler(capture)
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+    drains: list[list[bytes]] = []
+    real_digest = processor._device_digest_many
+
+    def recording(batches, dev):
+        drains.append(list(batches))
+        return real_digest(batches, dev)
+
+    processor._device_digest_many = recording
+    nodes, consumers, clients = [], [], []
+    commits: list[list[tuple[float, object]]] = [[] for _ in range(NODE_N)]
+    out = {}
+    try:
+        index = {s.name: i for i, s in enumerate(secrets)}
+        # Spawned in descending leader order, as phase 9 does.
+        by_key = sorted(secrets, key=lambda s: s.name, reverse=True)
+        t = time.perf_counter()
+        booted = {}
+        for s in by_key:
+            i = index[s.name]
+            key_file = f"{tmp}/node_{i}.json"
+            s.write(key_file)
+            booted[i] = await in_context_of(i, Node.new(
+                committee_file, key_file, f"{tmp}/db_{i}", parameters_file=params_file,
+                benchmark=True, device=device))
+        nodes = [booted[i] for i in range(NODE_N)]
+        out["boot_s"] = time.perf_counter() - t
+        backend = crypto.get_backend()
+        check(isinstance(backend, BatchingBackend) and isinstance(backend.inner, CudaBackend),
+              f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched installed {backend!r}")
+
+        async def consume(i):
+            while True:
+                block = await nodes[i].commit.get()
+                commits[i].append((time.time(), block))
+
+        consumers = [asyncio.create_task(consume(i)) for i in range(NODE_N)]
+        addresses = [("127.0.0.1", base + 10 + i) for i in range(NODE_N)]
+        clients = [in_context_of(i, run_client(
+            addresses[i], NODE_TX_BYTES, NODE_RATE // NODE_N, NODE_TIMEOUT_MS, addresses,
+            duration=600)) for i in range(NODE_N)]
+
+        def payload_commits(i):
+            return [(ts, b) for ts, b in commits[i] if b.payload]
+
+        deadline = time.monotonic() + NODE_BOOT_S
+        while not all(payload_commits(i) for i in range(NODE_N)):
+            check(time.monotonic() < deadline, "no payload block committed on every node")
+            for n in nodes:
+                check(not n.mempool.failed.done(), "a mempool actor died")
+            await asyncio.sleep(0.05)
+        out["first_commit_s"] = time.perf_counter() - t
+
+        # The widths the card's verifications ran at in the window: the
+        # signatures of each inner call, and the first batch verified at
+        # each (mf, mc), for the kernels' checks against their plain versions.
+        # The crypto bridge's workers call it from their threads.
+        inner, widths, sig_counts = backend.inner, {}, {}
+        real_verify, lock = inner.verify_batch, threading.Lock()
+
+        def recording_verify(msgs, pubs, sigs):
+            real_verify(msgs, pubs, sigs)  # raises on rejection
+            n = len(msgs)
+            with lock:
+                sig_counts[n] = sig_counts.get(n, 0) + 1
+                widths.setdefault((ov._pad_to_pow2(n), ov._pad_to_pow2(n + 1)),
+                                  (list(msgs), list(pubs), list(sigs)))
+
+        # The measured window: counts zeroed just before, read just after.
+        timeouts0 = sum(n.consensus.core.timeouts_fired for n in nodes)
+        marks = [len(c) for c in commits]
+        mk.reset_launches()
+        sha.LAUNCHES["sha512"] = 0
+        processor.reset_stats()
+        inner.verify_batch = recording_verify
+        t0 = time.time()
+        await asyncio.sleep(NODE_WINDOW_S)
+        t1 = time.time()
+        del inner.verify_batch
+        out["launches"] = {**mk.LAUNCHES, **sha.LAUNCHES}
+        with lock:
+            out["widths"], out["sig_counts"] = dict(widths), dict(sorted(sig_counts.items()))
+        out["inner"] = inner
+        out["stats"] = dict(processor.STATS)
+        out["drain_sizes"] = dict(sorted(processor.DRAIN_SIZES.items()))
+        out["timeouts"] = sum(n.consensus.core.timeouts_fired for n in nodes) - timeouts0
+        for task in clients:
+            task.cancel()
+        await asyncio.sleep(NODE_DRAIN_S)  # what was sent commits
+        for n in nodes:
+            if n.mempool.failed.done():
+                n.mempool.failed.result()  # raises what killed the actor
+
+        # Every node committed the same sequence of payload blocks.
+        seqs = [[b.digest() for _, b in payload_commits(i)] for i in range(NODE_N)]
+        short = min(map(len, seqs))
+        check(all(s[:short] == seqs[0][:short] for s in seqs),
+              "the nodes committed different sequences of payload blocks")
+        check(max(map(len, seqs)) - short <= 2, f"payload commits per node {list(map(len, seqs))}")
+        out["payload_blocks"] = short
+        # Every committed digest reads back from all four stores, and is the
+        # SHA-512/32 of the stored bytes.
+        first_commit = {}
+        for i in range(NODE_N):
+            for ts, b in payload_commits(i):
+                for d in b.payload:
+                    first_commit[d] = min(ts, first_commit.get(d, ts))
+        txs_of = {}
+        for d in first_commit:
+            stored = [await n.store.read(d.data) for n in nodes]
+            check(stored[0] is not None and all(x == stored[0] for x in stored),
+                  f"batch {d!r} does not read back equal from every store")
+            check(hashlib.sha512(stored[0]).digest()[:32] == d.data,
+                  f"batch {d!r}: the stored bytes hash to another digest")
+            kind, txs = decode_batch(stored[0])
+            check(kind == "batch", f"batch {d!r} is a {kind}")
+            txs_of[d] = txs
+        out["committed_batches"] = len(first_commit)
+        # Throughput: transactions in batches first committed in the window.
+        in_window = [d for d, ts in first_commit.items() if t0 <= ts <= t1]
+        out["tx_per_s"] = sum(len(txs_of[d]) for d in in_window) / (t1 - t0)
+        out["batches_per_s"] = len(in_window) / (t1 - t0)
+        rounds = [b.round for ts, b in commits[0][marks[0]:] if ts <= t1]
+        before = [b.round for _, b in commits[0][:marks[0]]]
+        out["rounds_per_s"] = (max(rounds) - max(before)) / (t1 - t0) if rounds else 0.0
+        # Sample transactions, as the harness's LogParser pairs them: client
+        # i's send, node i's batch that holds it, that batch's first commit;
+        # the committed batch's bytes must hold the transaction.
+        sent, batch_of = {}, {}
+        for i, r in records:
+            if r.msg == "Sending sample transaction %d":
+                sent[(i, r.args[0])] = r.created
+            elif r.msg == "Batch %s contains sample tx %d":
+                batch_of[(i, r.args[1])] = r.args[0]
+        found = {}
+        for key, d in batch_of.items():
+            if d in first_commit:
+                sample = b"\x00" + key[1].to_bytes(8, "big")
+                check(any(tx[:9] == sample for tx in txs_of[d]),
+                      f"batch {d!r} lacks the sample transaction {key[1]} it was logged with")
+                found[key] = first_commit[d]
+        expected = [key for key, ts in sent.items() if ts <= t1 - NODE_SAMPLE_SLACK_S]
+        missing = [key for key in expected if key not in found]
+        unsealed = sum(key not in batch_of for key in missing)
+        check(expected and not missing,
+              f"{len(missing)} of {len(expected)} sample transactions never committed "
+              f"({unsealed} never sealed into a batch; sent "
+              f"{min((sent[k] - t1 for k in missing), default=0):.2f} to "
+              f"{max((sent[k] - t1 for k in missing), default=0):.2f} s from the window's end)")
+        latency = sorted(found[key] - sent[key] for key, ts in sent.items()
+                         if t0 <= ts <= t1 and key in found)
+        check(latency, "no sample transaction sent in the window committed")
+        out["samples"] = len(latency)
+        out["p50_ms"] = 1e3 * float(np.percentile(latency, 50))
+        out["p95_ms"] = 1e3 * float(np.percentile(latency, 95))
+        out["drains"] = drains
+        out["window_s"] = t1 - t0
+    finally:
+        for task in clients + consumers:
+            task.cancel()
+        for n in nodes:
+            await n.shutdown()
+        processor._device_digest_many = real_digest
+        for name, level in levels.items():
+            logger = logging.getLogger(name)
+            logger.removeHandler(capture)
+            logger.setLevel(level)
+            logger.propagate = True
+        del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def node_phase(seed: int, card: str, device, imad_per_s: float):
+    """Phase 10c, the QC kernels at its widths and the digest kernel at its
+    drains. Returns (launches in the measured window, the digest kernel's
+    JSON row, the QC kernels' rows at the widest width)."""
+    t = time.perf_counter()
+    run = asyncio.run(config1(seed, device))
+    phase_s = time.perf_counter() - t
+    launches, stats = run["launches"], run["stats"]
+    check(launches["sha512"] >= 1, f"no drain of more than one batch ran the kernel: {stats}")
+    for name in PHASE10_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the node path")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"the node path launched K4 or the root alone: {launches}")
+    check(run["timeouts"] == 0, f"{run['timeouts']} timeouts fired in the measured window")
+    print(f"config 1 on {card}: {NODE_N} port nodes (LogEngine stores, keys from --seed), "
+          f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched, timeout {NODE_TIMEOUT_MS} ms, batch "
+          f"{NODE_BATCH_BYTES} B, max batch delay {NODE_BATCH_DELAY_MS} ms, device digests on; "
+          f"{NODE_N} clients at {NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B; booted in "
+          f"{run['boot_s']:.2f} s, first payload commit on every node at {run['first_commit_s']:.2f} "
+          f"s; phase {phase_s:.1f} s")
+    print(f"config 1 on {card}: over {run['window_s']:.2f} s: {run['tx_per_s']:.1f} committed tx/s "
+          f"({run['batches_per_s']:.1f} batches/s), {run['rounds_per_s']:.2f} rounds/s, sample tx "
+          f"send-to-commit latency p50 {run['p50_ms']:.1f} ms, p95 {run['p95_ms']:.1f} ms "
+          f"({run['samples']} samples); every node committed the same {run['payload_blocks']} "
+          f"payload blocks; {run['committed_batches']} committed batches read back from all "
+          f"{NODE_N} stores and equal hashlib's SHA-512/32; no timeout")
+    print(f"config 1 on {card}: drains by size {run['drain_sizes']}; batches hashed on the card "
+          f"{stats['device_batches']}, on the host {stats['host_batches']}; launches "
+          + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
+    print(f"config 1 on {card}: CudaBackend calls by signatures {run['sig_counts']}")
+    # The QC kernels against their plain versions at every width the window
+    # ran them at, each on a batch the path verified at that width.
+    check(run["widths"], "the window verified nothing on the card")
+    qc_rows = {}
+    for (mf, mc), batch in sorted(run["widths"].items()):
+        rows, notes, shapes = kernel_checks(batch, run["inner"], device, imad_per_s,
+                                            uncached=False)
+        check(shapes[:2] == (mf, mc), f"a batch of {len(batch[0])} ran at mf, mc = {shapes[:2]}")
+        print(f"kernels vs plain on the card at a config 1 width (limb-exact), "
+              f"{len(batch[0])} signatures, mf={mf} mc={mc}:")
+        for line in notes:
+            print("  " + line)
+        qc_rows = rows  # the widest width's rows go into the JSON line
+    # The kernel at the widest drain the node path gave it, against its plain
+    # version on the same inputs.
+    msgs = max(run["drains"], key=len)
+    err, plain_ms = sha512_against_plain(msgs, device, "the node path's widest drain")
+    timed = sha512_times(msgs, device, imad_per_s, iters=20)
+    lengths = sorted(map(len, msgs))
+    shape = f"drain of {len(msgs)} lanes, {lengths[0]}-{lengths[-1]} B"
+    print(f"sha512 at the node path's widest {shape}: kernel = plain version = hashlib; "
+          f"kernel {timed['ms']:.4f} ms (events {timed['events_ms']:.4f}, profiler "
+          f"{timed['profiler_ms']:.4f}; plain {plain_ms:.1f} ms, bound {timed['bound_ms']:.6f} ms), "
+          f"H2D {timed['h2d_ms']:.4f} ms, sha512_32_batch {timed['e2e_ms']:.3f} ms, hashlib "
+          f"{timed['hashlib_ms']:.3f} ms")
+    row = dict(max_abs_err=err, ms=timed["ms"], plain_ms=plain_ms, bound_ms=timed["bound_ms"],
+               bound_by=timed["bound_by"], shape=shape, hashlib_ms=timed["hashlib_ms"],
+               config1_tx_per_s=run["tx_per_s"], config1_p50_ms=run["p50_ms"],
+               config1_p95_ms=run["p95_ms"], config1_rounds_per_s=run["rounds_per_s"])
+    return launches, row, qc_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1208,6 +1704,15 @@ def main() -> int:
     # 9. the consensus engine on the card
     committee_launches, committee_rows = committee_phase(args.seed, card, device, imad_per_s)
 
+    # 10. the mempool and the node: the digest kernel against its plain
+    # version and hashlib, its times, then BASELINE config 1
+    t = time.perf_counter()
+    for line in digest_checks(args.seed, device, imad_per_s):
+        print(line)
+    print(f"sha512 checks and times in {time.perf_counter() - t:.1f} s; SASS of sha512_kernel: "
+          f"{sass_counts()}")
+    config1_launches, sha_row, config1_rows = node_phase(args.seed, card, device, imad_per_s)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict"):
@@ -1220,16 +1725,24 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"],
             "launches_node_path": node_launches[name],
             "launches_committee": committee_launches[name],
+            "launches_config1": config1_launches[name],
         }
         for prefix, extra in (("fused", fused_rows), ("widest", wide_rows),
-                              ("committee", committee_rows)):
+                              ("committee", committee_rows), ("config1", config1_rows)):
             row_x = extra.get(name)
             if row_x is not None:
-                width = "committee" if prefix == "committee" else f"{prefix} flush"
+                width = prefix if prefix in ("committee", "config1") else f"{prefix} flush"
                 entry["shape"] += f"; {width} {row_x['shape']}"
                 entry.update({f"{prefix}_{key}": row_x[key]
                               for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
         kernels.append(entry)
+    source, replaces = SOURCES["sha512"]
+    kernels.append({
+        "name": "sha512", "route": "cuda", "source": source, "replaces": replaces,
+        "launches": 0, "library_ms": None, **sha_row,
+        "launches_node_path": 0, "launches_committee": 0,
+        "launches_config1": config1_launches["sha512"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

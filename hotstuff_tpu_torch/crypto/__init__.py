@@ -13,8 +13,10 @@ when it is importable, else the pure-Python oracle ``ed25519_ref``. Batch
 verification — the QC and TC path — goes to the active backend:
 ``"cuda"`` (``crypto/cuda_backend.py``, the default), ``"cpu"``, their
 super-batching variants ``"cuda-batched"``/``"cpu-batched"``
-(``crypto/batching.py``), or a backend object. Left in the reference: the
-opt-in verdict memo and the native C++ RLC engine of its ``CpuBackend``.
+(``crypto/batching.py``), or a backend object; unless one is set, the
+first ``get_backend()`` takes the name from ``HOTSTUFF_CRYPTO_BACKEND``.
+Left in the reference: the opt-in verdict memo and the native C++ RLC
+engine of its ``CpuBackend``.
 """
 
 from __future__ import annotations
@@ -418,9 +420,12 @@ _BACKEND = None
 
 
 def get_backend():
-    """The active batch backend; a ``CudaBackend`` on the card by default."""
+    """The active batch backend. At first use it is the one that
+    ``HOTSTUFF_CRYPTO_BACKEND`` names (``cuda``, ``cuda-batched``, ``cpu``
+    or ``cpu-batched``), as the reference's ``get_backend`` reads it; unset,
+    a ``CudaBackend`` on the card. Any other value raises ``ValueError``."""
     if _BACKEND is None:
-        set_backend("cuda")
+        set_backend(os.environ.get("HOTSTUFF_CRYPTO_BACKEND", "cuda"))
     return _BACKEND
 
 

@@ -18,6 +18,7 @@ The error contract is the reference's (``tpu_backend.py:64-106``):
 
 from __future__ import annotations
 
+import os
 import threading
 
 from hotstuff_tpu_torch.ops import verify as ops_verify
@@ -29,9 +30,13 @@ from . import BackendUnavailable, CryptoError
 class CudaBackend:
     name = "cuda"
 
-    def __init__(self, device="cuda", cache: bool = True) -> None:
+    def __init__(self, device="cuda", cache: bool | None = None) -> None:
         """``cache=False`` verifies every batch uncached: all keys
-        decompress per batch (K1) and the MSM is unsigned (K4 + K3)."""
+        decompress per batch (K1) and the MSM is unsigned (K4 + K3). Left
+        unset, ``HOTSTUFF_TPU_CACHE`` decides as in the reference
+        (``0``, ``false`` or ``no`` selects the uncached path)."""
+        if cache is None:
+            cache = os.environ.get("HOTSTUFF_TPU_CACHE", "1") not in ("0", "false", "no")
         self.device = resolve(device)
         # Committee point cache: validator keys decompress once and stay on
         # the card; per QC only R decompresses and the signed MSMs run.

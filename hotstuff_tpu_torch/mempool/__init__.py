@@ -1,11 +1,22 @@
-"""Mempool layer of the port: so far only the two messages the consensus
-engine sends the mempool (``Synchronize``, ``Cleanup``).
+"""Mempool layer: batch dissemination ahead of consensus (reference
+``mempool/src/mempool.rs``).
 
-Port copy of ``hotstuff_tpu/mempool/__init__.py``, trimmed to those names;
-the mempool itself (batch maker, quorum waiter, processor, data plane) is
-the next slice.
+Port of ``hotstuff_tpu/mempool/__init__.py``: bulk transaction data travels
+mempool-to-mempool as batches; consensus orders only their 32-byte
+digests. The data plane (``mempool/dataplane/``) is not ported yet, apart
+from its frame tag and store key.
 """
 
+from .config import Authority, Committee, Parameters, WorkerEntry
+from .mempool import Mempool
 from .synchronizer import Cleanup, Synchronize
 
-__all__ = ["Synchronize", "Cleanup"]
+__all__ = [
+    "Authority",
+    "Committee",
+    "Parameters",
+    "WorkerEntry",
+    "Mempool",
+    "Synchronize",
+    "Cleanup",
+]

@@ -1,2 +1,2 @@
-"""The mempool data plane of the port: so far only the store key of an
-availability certificate (``messages.cert_key``)."""
+"""The mempool data plane of the port: so far only its batch frame tag and
+the store key of an availability certificate (``messages``)."""

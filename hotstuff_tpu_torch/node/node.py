@@ -1,0 +1,109 @@
+"""Node composition root (reference ``node/src/node.rs:18-81``): read
+committee and secret, open the store, start the signature service, spawn
+the Mempool and Consensus wired by their channels, and consume the commit
+stream (``analyze_block`` is the application's attach point).
+
+Port of ``hotstuff_tpu/node/node.py``: ``Node.new``, ``analyze_block`` and
+``shutdown``. ``device`` (default ``"cuda"``) goes down to the mempool's
+processors, whose SHA-512 kernel it runs when ``device_batch_digests`` is
+on; the certificate path's device is the crypto backend's
+(``HOTSTUFF_CRYPTO_BACKEND``). Left out: the faultline scenario hook
+(reference ``:37-64``), telemetry and the sampling profiler
+(``:159-197``), the data plane's commit resolver (no data plane yet), and
+``crash``/``restart``, which belong to the faultline contract.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+
+from hotstuff_tpu_torch.consensus import Consensus
+from hotstuff_tpu_torch.crypto import SignatureService
+from hotstuff_tpu_torch.mempool import Mempool
+from hotstuff_tpu_torch.store import Store
+
+from .config import Committee, Parameters, Secret
+
+log = logging.getLogger("node")
+
+CHANNEL_CAPACITY = 1_000
+
+
+class Node:
+    def __init__(self) -> None:
+        self.commit: asyncio.Queue = asyncio.Queue(CHANNEL_CAPACITY)
+        self.name = None
+        self.mempool: Mempool | None = None
+        self.consensus: Consensus | None = None
+        self.store: Store | None = None
+
+    @classmethod
+    async def new(
+        cls,
+        committee_file: str,
+        key_file: str,
+        store_path: str,
+        parameters_file: str | None = None,
+        benchmark: bool = False,
+        device="cuda",
+    ) -> "Node":
+        self = cls()
+        secret = Secret.read(key_file)
+        committee = Committee.read(committee_file)
+        parameters = (
+            Parameters.read(parameters_file) if parameters_file else Parameters.default()
+        )
+        self.name = secret.name
+        self.store = Store(store_path)
+        signature_service = SignatureService(secret.secret)
+
+        tx_consensus_to_mempool: asyncio.Queue = asyncio.Queue(CHANNEL_CAPACITY)
+        tx_mempool_to_consensus: asyncio.Queue = asyncio.Queue(CHANNEL_CAPACITY)
+
+        self.mempool = Mempool(
+            secret.name,
+            committee.mempool,
+            parameters.mempool,
+            self.store,
+            tx_consensus_to_mempool,
+            tx_mempool_to_consensus,
+            benchmark=benchmark,
+            device=device,
+        )
+        await self.mempool.spawn()
+
+        self.consensus = await Consensus.spawn(
+            secret.name,
+            committee.consensus,
+            parameters.consensus,
+            signature_service,
+            self.store,
+            tx_mempool_to_consensus,
+            tx_consensus_to_mempool,
+            self.commit,
+            benchmark=benchmark,
+        )
+        log.info("Node %s successfully booted", secret.name)
+        return self
+
+    async def analyze_block(self) -> None:
+        """Sink committed blocks, the execution engine's attach point
+        (reference ``node/src/node.rs:76-80``). Raises what killed a
+        mempool actor (a failed digest kernel): the node's run ends with
+        it."""
+        failed = self.mempool.failed
+        while True:
+            block = asyncio.ensure_future(self.commit.get())
+            await asyncio.wait({block, failed}, return_when=asyncio.FIRST_COMPLETED)
+            if failed.done():
+                block.cancel()
+                failed.result()
+
+    async def shutdown(self) -> None:
+        if self.consensus is not None:
+            await self.consensus.shutdown()
+        if self.mempool is not None:
+            await self.mempool.shutdown()
+        if self.store is not None:
+            self.store.close()

@@ -26,7 +26,7 @@ leaked = sorted(m for m in sys.modules
 import torch
 from hotstuff_tpu_torch import crypto
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
-from hotstuff_tpu_torch.ops import verify
+from hotstuff_tpu_torch.ops import sha512, verify
 raised = {}
 if not torch.cuda.is_available():
     for what, call in [
@@ -35,6 +35,7 @@ if not torch.cuda.is_available():
         ("verify_batch_device", lambda: verify.verify_batch_device([b"m"], [b"k" * 32], [b"s" * 64])),
         ("get_backend", crypto.get_backend),
         ("set_backend cuda-batched", lambda: crypto.set_backend("cuda-batched")),
+        ("sha512_batch", lambda: sha512.sha512_batch([b"m"])),
     ]:
         try:
             call()
@@ -63,7 +64,11 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "consensus.proposer", "consensus.statesync", "consensus.synchronizer",
                  "consensus.timer", "mempool.synchronizer", "mempool.dataplane.messages",
                  "network.budget", "network.receiver", "network.reliable_sender",
-                 "network.simple_sender", "store", "utils.quorum", "utils.tasks"):
+                 "network.simple_sender", "store", "utils.quorum", "utils.tasks",
+                 "utils.logging", "ops.sha512", "mempool", "mempool.messages", "mempool.config",
+                 "mempool.batch_maker", "mempool.quorum_waiter", "mempool.processor",
+                 "mempool.helper", "mempool.mempool", "node", "node.config", "node.node",
+                 "node.__main__", "node.client"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:

@@ -8,9 +8,12 @@ of JAX, so it runs on a GPU host that has only the port's dependencies:
 Tolerance: limb-exact between each kernel and its plain version (they
 repeat the same arithmetic in the same order), the decompression's ok flags
 and the verdict's bool equal; MSM results also equal the RFC 8032 oracle by
-compressed encoding, and the decompression's ok flags the oracle's.
+compressed encoding, and the decompression's ok flags the oracle's. The
+SHA-512 kernel's digests equal its plain version's and ``hashlib``'s byte
+for byte.
 """
 
+import hashlib
 import random
 
 import numpy as np
@@ -23,6 +26,7 @@ from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
 from hotstuff_tpu_torch.ops import curve as cv
 from hotstuff_tpu_torch.ops import field as fe
 from hotstuff_tpu_torch.ops import msm_kernels as mk
+from hotstuff_tpu_torch.ops import sha512 as sha
 from tests.torch_inputs import VERDICT_CASES, decompress_inputs, verdict_case
 
 pytestmark = pytest.mark.cuda
@@ -184,3 +188,20 @@ def test_backend_on_card_accepts_and_rejects(cuda):
     path = {name: count for name, count in mk.LAUNCHES.items() if name != "sqrt_pow"}
     assert all(count > 0 for count in path.values()), mk.LAUNCHES
     assert mk.LAUNCHES["sqrt_pow"] == 0  # the decompression runs the root itself
+
+
+def test_sha512_matches_plain_and_hashlib(cuda):
+    """Mixed lengths at every padding boundary and 128 lanes of 0-1 kB in
+    one launch, byte for byte against the plain version; then drains up to
+    500 kB against hashlib (the plain version walks blocks in Python)."""
+    rng = random.Random(6)
+    lengths = [0, 1, 7, 8, 9, 111, 112, 113, 127, 128, 129, 239, 240, 255, 256, 300]
+    msgs = [rng.randbytes(n) for n in lengths] + [rng.randbytes(rng.randrange(0, 1025))
+                                                  for _ in range(128)]
+    buf = sha.pack(msgs).to(cuda)
+    before = sha.LAUNCHES["sha512"]
+    kernel = sha.sha512(*sha.unpack(buf, len(msgs)))
+    assert sha.LAUNCHES["sha512"] == before + 1
+    assert torch.equal(kernel, sha.sha512_plain(*sha.unpack(buf, len(msgs))))
+    big = msgs + [rng.randbytes(n) for n in (15000, 500_000, 6000, 0)]
+    assert sha.sha512_batch(big) == [hashlib.sha512(m).digest() for m in big]
