@@ -27,7 +27,8 @@ unguarded (any failure ends the run with a non-zero exit):
    kernel is timed at
    each of its main-path shapes by CUDA events and by the profiler's device
    time (``utils/kernel_times.kernel_ms``: the profiler's figure is taken
-   where the two differ by more than 10%), beside its grid, threads per
+   where the two differ by more than 10%, and printed as ``nan`` where
+   three traces lost the launches), beside its grid, threads per
    CTA, and ptxas' registers and stack bytes;
 6. warm per-QC time, split into host prep and the stream span of the copy
    and ``run_cached`` (CUDA events; it includes the gaps where the card
@@ -94,18 +95,30 @@ unguarded (any failure ends the run with a non-zero exit):
    a. the SHA-512 kernel (``csrc/sha512.cu``) against its plain version on
       the card, byte for byte, and both against ``hashlib``: lengths 0, 1,
       32, 96, 111, 112, 127, 128, 239, 240 and 300 in one drain, 128 lanes
-      of 0-1024 B, 1024 lanes of 96 B (the challenge input); then against
-      ``hashlib`` alone (the plain version walks blocks in Python) on the
-      reference digest bench's grid, drains of 8, 32 and 128 messages of
-      512 B, 15 kB and 500 kB, and on 128 mempool batches of 12-30
-      transactions of 512 B;
-   b. for each drain of the grid: the kernel's time (CUDA events and the
-      profiler, as phase 5), the pinned host-to-device copy apart, the
-      whole ``sha512_32_batch`` and ``hashlib`` on the card's host, the
-      bound and ptxas' usage; the SASS instruction counts of the kernel
-      beside the bound's model;
+      of 0-1024 B, 1024 lanes of 96 B (the challenge input), 1, 31, 32, 33
+      and 129 lanes of 0-1100 B (a CTA holds 32), and a ragged CTA (0 B
+      beside 40 kB and short lanes); then against ``hashlib`` alone (the
+      plain version walks blocks in Python) on a ragged CTA of 0 B beside
+      500 kB, on the reference digest bench's grid, drains of 8, 32 and
+      128 messages of 512 B, 15 kB and 500 kB, on 128 mempool batches of
+      12-30 transactions of 512 B, and on the node path's shapes: 1024 x
+      96 B, 2 and 3 x 15 kB, 18 x 15,485 B;
+   b. for each drain of the grid and the node path's shapes: the kernel's
+      time (CUDA events and the profiler, as phase 5), the pinned
+      host-to-device copy apart, the whole ``sha512_32_batch`` and its
+      host parts (pack, H2D, launch and kernel, D2H, split into bytes; host
+      clock, synchronized after each, inside the call), ``hashlib`` on the
+      card's host, the bound, ptxas' usage and the static SASS instruction
+      counts of the kernel, and the modelled chain and issue floors (from
+      the constants below, printed as a model and kept out of the JSON
+      line);
    c. BASELINE.json config 1, the reference's ``fab local`` setting: four
-      port ``Node``s in this process, each on a ``LogEngine`` store in a
+      port ``Node``s in this process (after a full collection, with every
+      object the earlier phases left alive frozen out of the garbage
+      collector: a full collection stops the event loop for as long as it
+      takes to traverse every tracked object, and over the earlier phases'
+      heap that came near the 1 s consensus timer), each on a
+      ``LogEngine`` store in a
       temporary directory, keys from ``--seed``, timeout 1 s, 15 kB
       batches sealed at 10 ms at the latest, device digests on, the
       backend chosen by ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched`` at the
@@ -143,6 +156,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextvars
+import functools
+import gc
 import hashlib
 import json
 import logging
@@ -296,6 +311,27 @@ DIGEST_DRAINS, DIGEST_SIZES = (8, 32, 128), (512, 15_000, 500_000)
 # byte swaps (PRMT) a loaded word. All on the int32 pipe, taken at the
 # IMAD rate below (64 a clock an SM).
 SHA512_INT_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 8 * 2 + 16 * 2
+# The chain floor: a lane's rounds are a dependent chain, block after
+# block, whatever the instruction rate. csrc/sha512.cu's round has 4
+# instructions on the e-chain (SHF, LOP3, IADD3, IADD3.X); each waits for
+# the one before, taken at 4 cycles (the dependent-issue latency of the
+# int32 pipe's fixed-latency instructions on Volta to Hopper, as published
+# microbenchmarks give it; not measured here). At the maximum SM clock:
+# the longest lane's blocks x 80 x 4 x 4 cycles.
+SHA512_CHAIN_DEPENDENT_OPS, INT32_DEPENDENT_CYCLES = 4, 4
+# The chain warp's issue floor: it runs alone on its scheduler, whose int32
+# pipe is 16 lanes wide (INT32_LANES_PER_SM / 4), so each of its warp
+# instructions holds the pipe 2 cycles. Its 8-round loop holds 224 SHF,
+# LOP3 and IADD3 in the SASS of csrc/sha512.cu (28 a round; a few more
+# adds go to the FMA pipe as IMAD.X): the longest lane's blocks x 80 x 28
+# x 2 cycles.
+SHA512_CHAIN_ALU_OPS, INT32_WARP_CYCLES = 28, 2
+# Phase 10a's added drains (lane counts around a CTA's 32, ragged lanes in
+# one CTA) and phase 10b's added rows: the verifier's challenge hashes,
+# the node path's drains of 2 and 3 batches, and 18 x 15,485 B, the widest
+# drain config 1 had given the kernel when these rows were chosen.
+SHA_LANE_COUNTS = (1, 31, 32, 33, 129)
+SHA_NODE_ROWS = ((1024, 96), (2, 15_000), (3, 15_000), (18, 15_485))
 # Phase 10c: BASELINE.json config 1, the reference's ``fab local`` setting
 # (benchmark/local.py:46-53, benchmark/fabfile.py:24-29): 4 nodes, timeout
 # 1 s, 15 kB batches sealed at 10 ms at the latest, 1000 tx/s of 512 B
@@ -1161,9 +1197,12 @@ def sha512_bound(lengths, imad_per_s: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+@functools.lru_cache(maxsize=1)
 def sass_counts() -> str:
     """Instructions of ``sha512_kernel`` in the built library's SASS, in
-    all and by the int32 opcodes the model counts (``cuobjdump``)."""
+    all and by the int32 opcodes the model counts (``cuobjdump``). Static
+    counts: the chain's 8-round loop and the schedule's 16-step loop are
+    counted once, not once a block."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return "cuobjdump not found"
@@ -1181,9 +1220,10 @@ def sass_counts() -> str:
                 op = words[0].split(".")[0]
                 counts[op] = counts.get(op, 0) + 1
     total = sum(counts.values())
-    return (f"{total} instructions, SHF {counts.get('SHF', 0)}, LOP3 {counts.get('LOP3', 0)}, "
-            f"IADD3 {counts.get('IADD3', 0)}, PRMT {counts.get('PRMT', 0)} (the model: "
-            f"{SHA512_INT_OPS_PER_BLOCK} a block)")
+    return (f"{total} static instructions, SHF {counts.get('SHF', 0)}, LOP3 "
+            f"{counts.get('LOP3', 0)}, IADD3 {counts.get('IADD3', 0)}, PRMT {counts.get('PRMT', 0)}, "
+            f"LDS {counts.get('LDS', 0)}, STS {counts.get('STS', 0)}, BAR {counts.get('BAR', 0)} "
+            f"(the bound's model: {SHA512_INT_OPS_PER_BLOCK} a block)")
 
 
 def digest_drain(lanes: int, size: int, rng: random.Random) -> list[bytes]:
@@ -1213,9 +1253,45 @@ def sha512_against_plain(msgs, device, what: str) -> tuple[int, float]:
     return err, plain_ms
 
 
+def sha512_parts(msgs, device, reps: int) -> dict:
+    """The host clock's split of one ``sha512_32_batch`` call into
+    ``ops.sha512.STEPS``, timed inside the call itself (``digests`` with a
+    ``mark`` that synchronizes the stream at each step's end; median ms of
+    ``reps``): the pack into the staging buffer (its growth included), the
+    H2D copy, the launch and the kernel, the D2H copy into the pinned
+    buffer, the split into ``bytes``."""
+    parts = {k: [] for k in sha.STEPS}
+    want = [hashlib.sha512(m).digest()[:32] for m in msgs]
+    for _ in range(reps):
+        clock = [0.0]
+
+        def mark(step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if step is not None:
+                parts[step].append((now - clock[0]) * 1e3)
+            clock[0] = now
+
+        mark(None)
+        got = sha.digests(msgs, device, 32, mark)
+        check(got == want, "the split sha512_32_batch differs from hashlib")
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def sha512_chain_floors_ms(lengths, clock_hz: float) -> tuple[float, float]:
+    """(chain floor, issue floor) at ``clock_hz``: the longest lane's blocks
+    x 80 rounds x the e-chain's dependent instructions x their latency, and
+    the same blocks x 80 x the chain warp's int32 instructions a round x the
+    cycles each holds its scheduler's pipe."""
+    rounds = max(sha.blocks_of(n) for n in lengths) * 80
+    return (rounds * SHA512_CHAIN_DEPENDENT_OPS * INT32_DEPENDENT_CYCLES / clock_hz * 1e3,
+            rounds * SHA512_CHAIN_ALU_OPS * INT32_WARP_CYCLES / clock_hz * 1e3)
+
+
 def sha512_times(msgs, device, imad_per_s: float, iters: int) -> dict:
     """Kernel time (events and profiler), the H2D copy apart, the whole
-    ``sha512_32_batch``, and ``hashlib`` on the same drain, with the bound."""
+    ``sha512_32_batch`` and its host parts, and ``hashlib`` on the same
+    drain, with the bound and the chain floor."""
     pinned = sha.pack(msgs, pin=True)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     copies = []
@@ -1229,7 +1305,7 @@ def sha512_times(msgs, device, imad_per_s: float, iters: int) -> dict:
     ms, ev, pr = kernel_ms(lambda: sha.sha512(*views), iters, PROFILER_NAMES["sha512"])
     want = [hashlib.sha512(m).digest()[:32] for m in msgs]
     e2e, host = [], []
-    for _ in range(3):
+    for _ in range(3 if iters < 20 else 7):
         t = time.perf_counter()
         got = sha.sha512_32_batch(msgs)
         e2e.append((time.perf_counter() - t) * 1e3)
@@ -1237,40 +1313,69 @@ def sha512_times(msgs, device, imad_per_s: float, iters: int) -> dict:
         t = time.perf_counter()
         [hashlib.sha512(m).digest()[:32] for m in msgs]
         host.append((time.perf_counter() - t) * 1e3)
+    parts = sha512_parts(msgs, device, reps=3 if iters < 20 else 7)
     b, by = sha512_bound([len(m) for m in msgs], imad_per_s)
+    clock_hz = imad_per_s / (torch.cuda.get_device_properties(0).multi_processor_count
+                             * INT32_LANES_PER_SM)
     return dict(ms=ms, events_ms=ev, profiler_ms=pr, h2d_ms=float(np.median(copies)),
                 e2e_ms=float(np.median(e2e)), hashlib_ms=float(np.median(host)), bound_ms=b,
-                bound_by=by, nbytes=sum(map(len, msgs)))
+                bound_by=by, nbytes=sum(map(len, msgs)), parts=parts,
+                **dict(zip(("chain_floor_ms", "issue_floor_ms"),
+                           sha512_chain_floors_ms([len(m) for m in msgs], clock_hz))))
+
+
+def sha512_row(what: str, t: dict, sass: str) -> str:
+    p = t["parts"]
+    return (f"sha512 drain {what} ({t['nbytes'] / 1e6:.3f} MB) = hashlib: kernel {t['ms']:.4f} ms "
+            f"(events {t['events_ms']:.4f}, profiler {t['profiler_ms']:.4f}; bound "
+            f"{t['bound_ms']:.6f} ms by {t['bound_by']}; modelled, not measured: chain floor "
+            f"{t['chain_floor_ms']:.4f} ms at an assumed {INT32_DEPENDENT_CYCLES} cycles a "
+            f"dependent instruction, issue floor {t['issue_floor_ms']:.4f} ms at a hand-counted "
+            f"{SHA512_CHAIN_ALU_OPS} instructions a round), "
+            f"H2D copy {t['h2d_ms']:.4f} ms, sha512_32_batch {t['e2e_ms']:.3f} ms = pack "
+            f"{p['pack']:.3f} + H2D {p['h2d']:.3f} + launch and kernel {p['kernel']:.3f} + D2H "
+            f"{p['d2h']:.3f} + bytes {p['bytes']:.3f} ms (host clock, synchronized), hashlib "
+            f"{t['hashlib_ms']:.3f} ms; {sass}")
 
 
 def digest_checks(seed: int, device, imad_per_s: float) -> list[str]:
     """10a and 10b: the kernel against its plain version and hashlib, and
-    its times, on the reference digest bench's grid."""
+    its times, on the reference digest bench's grid and the node path's
+    shapes."""
     rng = random.Random(seed * 7919 + 10)
     notes = []
+    lanes = [(f"{n} lanes of 0-1100 B", [rng.randbytes(rng.randrange(0, 1101)) for _ in range(n)])
+             for n in SHA_LANE_COUNTS]
+    ragged = [b"", rng.randbytes(40_000), b"", rng.randbytes(1)] + [
+        rng.randbytes(rng.randrange(0, 300)) for _ in range(28)]
     for what, msgs in (
         ("lengths " + ", ".join(map(str, SHA_LENGTHS)), [rng.randbytes(n) for n in SHA_LENGTHS]),
         ("128 lanes of 0-1024 B", [rng.randbytes(rng.randrange(0, 1025)) for _ in range(128)]),
         ("1024 lanes of 96 B (R || A || M)", digest_drain(1024, 96, rng)),
+        *lanes,
+        ("ragged CTA: 0 B, 40 kB, 0 B, 1 B and 28 lanes of 0-300 B", ragged),
     ):
         err, plain_ms = sha512_against_plain(msgs, device, what)
         notes.append(f"sha512 {what}: kernel = plain version = hashlib, byte for byte "
                      f"(plain {plain_ms:.1f} ms)")
+    ragged = [b"", rng.randbytes(500_000), b""] + [rng.randbytes(rng.randrange(0, 200))
+                                                   for _ in range(29)]
+    check(sha.sha512_batch(ragged) == [hashlib.sha512(m).digest() for m in ragged],
+          "sha512 (ragged CTA, 0 B beside 500 kB) != hashlib")
+    notes.append("sha512 ragged CTA: 0 B, 500 kB, 0 B and 29 lanes of 0-200 B = hashlib")
     grid = [(f"{lanes} x {size} B", digest_drain(lanes, size, rng))
             for lanes in DIGEST_DRAINS for size in DIGEST_SIZES]
     grid.append(("128 mempool batches of 12-30 x 512-B txs", batch_drain(rng)))
+    grid += [(f"{lanes} x {size} B", digest_drain(lanes, size, rng))
+             for lanes, size in SHA_NODE_ROWS]
     regs, stack, spill = ptxas_usage()["sha512"]
+    sass = f"{regs} registers, {stack} B stack, {spill} B spill stores; SASS {sass_counts()}"
     for what, msgs in grid:
         got = sha.sha512_batch(msgs)
         check(got == [hashlib.sha512(m).digest() for m in msgs], f"sha512 ({what}) != hashlib")
         big = sum(map(len, msgs)) > 16_000_000
-        t = sha512_times(msgs, device, imad_per_s, iters=5 if big else 20)
-        notes.append(
-            f"sha512 drain {what} ({t['nbytes'] / 1e6:.3f} MB) = hashlib: kernel {t['ms']:.4f} ms "
-            f"(events {t['events_ms']:.4f}, profiler {t['profiler_ms']:.4f}; bound "
-            f"{t['bound_ms']:.4f} ms by {t['bound_by']}), H2D copy {t['h2d_ms']:.4f} ms, "
-            f"sha512_32_batch {t['e2e_ms']:.3f} ms, hashlib {t['hashlib_ms']:.3f} ms; "
-            f"{regs} registers, {stack} B stack, {spill} B spill stores")
+        notes.append(sha512_row(what, sha512_times(msgs, device, imad_per_s, iters=5 if big else 20),
+                                sass))
     return notes
 
 
@@ -1336,6 +1441,18 @@ async def config1(seed: int, device) -> dict:
     processor._device_digest_many = recording
     nodes, consumers, clients = [], [], []
     commits: list[list[tuple[float, object]]] = [[] for _ in range(NODE_N)]
+    # The collector's pauses in the window: each stops every thread that
+    # wants the interpreter, the four nodes' event loop among them.
+    pauses: list[tuple[int, float]] = []
+    started: dict[int, float] = {}
+
+    def on_gc(phase, info):
+        me = threading.get_ident()
+        if phase == "start":
+            started[me] = time.perf_counter()
+        elif me in started:
+            pauses.append((info["generation"], time.perf_counter() - started.pop(me)))
+
     out = {}
     try:
         index = {s.name: i for i, s in enumerate(secrets)}
@@ -1394,6 +1511,7 @@ async def config1(seed: int, device) -> dict:
                                   (list(msgs), list(pubs), list(sigs)))
 
         # The measured window: counts zeroed just before, read just after.
+        gc.callbacks.append(on_gc)
         timeouts0 = sum(n.consensus.core.timeouts_fired for n in nodes)
         marks = [len(c) for c in commits]
         mk.reset_launches()
@@ -1403,6 +1521,7 @@ async def config1(seed: int, device) -> dict:
         t0 = time.time()
         await asyncio.sleep(NODE_WINDOW_S)
         t1 = time.time()
+        gc.callbacks.remove(on_gc)
         del inner.verify_batch
         out["launches"] = {**mk.LAUNCHES, **sha.LAUNCHES}
         with lock:
@@ -1411,6 +1530,9 @@ async def config1(seed: int, device) -> dict:
         out["stats"] = dict(processor.STATS)
         out["drain_sizes"] = dict(sorted(processor.DRAIN_SIZES.items()))
         out["timeouts"] = sum(n.consensus.core.timeouts_fired for n in nodes) - timeouts0
+        out["gc_pauses"] = len(pauses)
+        out["gc_full"] = sum(generation == 2 for generation, _ in pauses)
+        out["gc_longest_ms"] = 1e3 * max((secs for _, secs in pauses), default=0.0)
         for task in clients:
             task.cancel()
         await asyncio.sleep(NODE_DRAIN_S)  # what was sent commits
@@ -1483,6 +1605,8 @@ async def config1(seed: int, device) -> dict:
         out["drains"] = drains
         out["window_s"] = t1 - t0
     finally:
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
         for task in clients + consumers:
             task.cancel()
         for n in nodes:
@@ -1502,6 +1626,18 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
     """Phase 10c, the QC kernels at its widths and the digest kernel at its
     drains. Returns (launches in the measured window, the digest kernel's
     JSON row, the QC kernels' rows at the widest width)."""
+    # The four nodes share this process with what phases 1-10b left alive.
+    # A full collection traverses every tracked object and stops the event
+    # loop while it runs; freeze the earlier phases' objects out of it, as
+    # four node processes would not hold them.
+    t = time.perf_counter()
+    gc.collect()
+    collect_ms = (time.perf_counter() - t) * 1e3
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    t = time.perf_counter()
+    gc.collect()
+    frozen_collect_ms = (time.perf_counter() - t) * 1e3
     t = time.perf_counter()
     run = asyncio.run(config1(seed, device))
     phase_s = time.perf_counter() - t
@@ -1511,19 +1647,25 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
         check(launches[name] > 0, f"kernel {name} never launched on the node path")
     check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
           f"the node path launched K4 or the root alone: {launches}")
-    check(run["timeouts"] == 0, f"{run['timeouts']} timeouts fired in the measured window")
+    check(run["timeouts"] == 0, f"{run['timeouts']} timeouts fired in the measured window (the "
+          f"garbage collector ran {run['gc_pauses']} times, {run['gc_full']} full, the longest "
+          f"{run['gc_longest_ms']:.1f} ms)")
     print(f"config 1 on {card}: {NODE_N} port nodes (LogEngine stores, keys from --seed), "
           f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched, timeout {NODE_TIMEOUT_MS} ms, batch "
           f"{NODE_BATCH_BYTES} B, max batch delay {NODE_BATCH_DELAY_MS} ms, device digests on; "
           f"{NODE_N} clients at {NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B; booted in "
           f"{run['boot_s']:.2f} s, first payload commit on every node at {run['first_commit_s']:.2f} "
-          f"s; phase {phase_s:.1f} s")
+          f"s; phase {phase_s:.1f} s; before it a full collection took {collect_ms:.1f} ms, "
+          f"then {frozen:,} objects were frozen out of the collector and a full collection "
+          f"took {frozen_collect_ms:.1f} ms")
     print(f"config 1 on {card}: over {run['window_s']:.2f} s: {run['tx_per_s']:.1f} committed tx/s "
           f"({run['batches_per_s']:.1f} batches/s), {run['rounds_per_s']:.2f} rounds/s, sample tx "
           f"send-to-commit latency p50 {run['p50_ms']:.1f} ms, p95 {run['p95_ms']:.1f} ms "
           f"({run['samples']} samples); every node committed the same {run['payload_blocks']} "
           f"payload blocks; {run['committed_batches']} committed batches read back from all "
-          f"{NODE_N} stores and equal hashlib's SHA-512/32; no timeout")
+          f"{NODE_N} stores and equal hashlib's SHA-512/32; no timeout; the garbage collector "
+          f"ran {run['gc_pauses']} times in the window ({run['gc_full']} full), the longest "
+          f"{run['gc_longest_ms']:.1f} ms")
     print(f"config 1 on {card}: drains by size {run['drain_sizes']}; batches hashed on the card "
           f"{stats['device_batches']}, on the host {stats['host_batches']}; launches "
           + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
@@ -1548,13 +1690,11 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
     timed = sha512_times(msgs, device, imad_per_s, iters=20)
     lengths = sorted(map(len, msgs))
     shape = f"drain of {len(msgs)} lanes, {lengths[0]}-{lengths[-1]} B"
-    print(f"sha512 at the node path's widest {shape}: kernel = plain version = hashlib; "
-          f"kernel {timed['ms']:.4f} ms (events {timed['events_ms']:.4f}, profiler "
-          f"{timed['profiler_ms']:.4f}; plain {plain_ms:.1f} ms, bound {timed['bound_ms']:.6f} ms), "
-          f"H2D {timed['h2d_ms']:.4f} ms, sha512_32_batch {timed['e2e_ms']:.3f} ms, hashlib "
-          f"{timed['hashlib_ms']:.3f} ms")
+    print(f"sha512 at the node path's widest {shape}: kernel = plain version = hashlib "
+          f"(plain {plain_ms:.1f} ms); " + sha512_row(shape, timed, "")[len("sha512 drain "):])
     row = dict(max_abs_err=err, ms=timed["ms"], plain_ms=plain_ms, bound_ms=timed["bound_ms"],
                bound_by=timed["bound_by"], shape=shape, hashlib_ms=timed["hashlib_ms"],
+               sha512_32_batch_ms=timed["e2e_ms"], host_parts_ms=timed["parts"],
                config1_tx_per_s=run["tx_per_s"], config1_p50_ms=run["p50_ms"],
                config1_p95_ms=run["p95_ms"], config1_rounds_per_s=run["rounds_per_s"])
     return launches, row, qc_rows

@@ -64,7 +64,11 @@ class Proposer:
     @classmethod
     def spawn(cls, *args, **kwargs) -> asyncio.Task:
         self = cls(*args, **kwargs)
-        return asyncio.create_task(self._run(), name="proposer")
+        task = asyncio.create_task(self._run(), name="proposer")
+        # Its sender's connections outlive the task unless closed with it:
+        # they would go on retransmitting to peers that have moved on.
+        task.add_done_callback(lambda _: self.network.shutdown())
+        return task
 
     async def _run(self) -> None:
         get_digest = asyncio.create_task(self.rx_mempool.get())

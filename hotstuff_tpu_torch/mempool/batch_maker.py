@@ -51,7 +51,11 @@ class BatchMaker:
     @classmethod
     def spawn(cls, *args, **kwargs) -> asyncio.Task:
         self = cls(*args, **kwargs)
-        return asyncio.create_task(self._run(), name="batch_maker")
+        task = asyncio.create_task(self._run(), name="batch_maker")
+        # Its sender's connections outlive the task unless closed with it:
+        # they would go on retransmitting to peers that have moved on.
+        task.add_done_callback(lambda _: self.network.shutdown())
+        return task
 
     async def _run(self) -> None:
         deadline = time.monotonic() + self.max_batch_delay

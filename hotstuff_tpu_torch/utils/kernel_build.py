@@ -61,7 +61,7 @@ def _build_key(capability: tuple[int, int]) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     sigs = {
         "decompress_launch": [vp, vp, vp, vp, i, vp],
         "sqrt_pow_launch": [vp, vp, vp, i, i, vp],
@@ -69,7 +69,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "msm_partials_unsigned_launch": [vp, vp, vp, i, i, i, i, vp],
         "msm_combine_launch": [vp, vp, vp, vp, i, i, vp],
         "verdict_launch": [vp, i, vp, vp, vp, vp],
-        "sha512_launch": [vp, vp, vp, i, vp, vp],
+        "sha512_launch": [vp, i64, vp, vp, i, vp, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)

@@ -7,6 +7,7 @@ package."""
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -87,3 +88,16 @@ def test_chip_smoke_imports_no_jax_and_no_reference_module():
     top = {name.split(".")[0] for name in imported}
     assert "hotstuff_tpu_torch" in top
     assert not top & {"jax", "jaxlib", "hotstuff_tpu"}, sorted(imported)
+
+
+def test_kernel_times_runs_as_a_script_without_a_card():
+    """Run by path, as its docstring says, the timer must reach its own
+    check for a card. Python puts the script's directory first on the
+    path, and there ``utils/logging.py`` shadowed the standard library's
+    ``logging`` at ``import torch``."""
+    script = REPO / "hotstuff_tpu_torch" / "utils" / "kernel_times.py"
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}  # no card, also on a GPU host
+    out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         timeout=300, cwd=REPO, env=env)
+    assert "partially initialized module 'logging'" not in out.stderr, out.stderr
+    assert out.returncode == 1 and "kernel_times: no CUDA device" in out.stderr, out.stderr

@@ -205,3 +205,85 @@ def test_sha512_matches_plain_and_hashlib(cuda):
     assert torch.equal(kernel, sha.sha512_plain(*sha.unpack(buf, len(msgs))))
     big = msgs + [rng.randbytes(n) for n in (15000, 500_000, 6000, 0)]
     assert sha.sha512_batch(big) == [hashlib.sha512(m).digest() for m in big]
+
+
+def sha512_drain(case, rng):
+    """The drains of the redesigned kernel's checks: lane counts around a
+    CTA's 32, the challenge shape, ragged lanes in one CTA, lanes longer
+    than the ring, every padding boundary."""
+    lanes = {"n=1": 1, "n=31": 31, "n=32": 32, "n=33": 33, "n=129": 129}
+    if case in lanes:
+        return [rng.randbytes(rng.randrange(0, 1100)) for _ in range(lanes[case])]
+    if case == "1024 x 96 B":
+        return [rng.randbytes(96) for _ in range(1024)]
+    if case == "ragged, 0 B beside 40 kB":
+        return [b"", rng.randbytes(40_000), b"", rng.randbytes(1)] + [
+            rng.randbytes(rng.randrange(0, 300)) for _ in range(28)]
+    if case == "longer than the ring":
+        return [rng.randbytes(15_000), rng.randbytes(769), rng.randbytes(767), rng.randbytes(5)]
+    return [rng.randbytes(n) for n in (0, 1, 7, 8, 9, 15, 16, 17, 111, 112, 113, 127, 128, 129,
+                                       239, 240, 255, 256, 300, 367, 368, 383, 384, 385)]
+
+
+@pytest.mark.parametrize("case", ["n=1", "n=31", "n=32", "n=33", "n=129", "1024 x 96 B",
+                                  "ragged, 0 B beside 40 kB", "longer than the ring",
+                                  "boundaries"])
+def test_sha512_drains_match_plain_and_hashlib(cuda, case):
+    """One launch a drain, byte for byte against the plain version (run on
+    a host copy of the same buffer: its rounds walk blocks in Python) and
+    against hashlib, through the wrapper and through ``sha512_batch``."""
+    msgs = sha512_drain(case, random.Random(case))
+    buf = sha.pack(msgs)
+    before = sha.LAUNCHES["sha512"]
+    kernel = sha.sha512(*sha.unpack(buf.to(cuda), len(msgs))).cpu()
+    assert sha.LAUNCHES["sha512"] == before + 1
+    assert torch.equal(kernel, sha.sha512_plain(*sha.unpack(buf, len(msgs))))
+    want = [hashlib.sha512(m).digest() for m in msgs]
+    assert [bytes(row) for row in kernel.numpy()] == want
+    assert sha.sha512_batch(msgs) == want
+
+
+def test_sha512_ragged_cta_of_500_kb_matches_hashlib(cuda):
+    """0 B beside 500 kB (3,907 blocks) in one CTA: the producers of the
+    empty lanes must keep the ring turning until the long lane ends."""
+    rng = random.Random(500)
+    msgs = [b"", rng.randbytes(500_000), b""] + [rng.randbytes(rng.randrange(0, 200))
+                                                 for _ in range(30)]
+    assert sha.sha512_batch(msgs) == [hashlib.sha512(m).digest() for m in msgs]
+
+
+def test_sha512_unaligned_lanes_match_hashlib(cuda):
+    """Offsets the wrapper's pack never makes (odd, and a buffer that ends
+    at the last byte): the kernel reads such lanes byte by byte."""
+    rng = random.Random(9)
+    msgs = [rng.randbytes(n) for n in (0, 5, 111, 112, 200, 1000)]
+    offsets, data = [], b""
+    for m in msgs:
+        data += bytes(rng.randrange(1, 5))
+        offsets.append(len(data))
+        data += m
+    tdata = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    toff = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+    tlen = torch.tensor([len(m) for m in msgs], dtype=torch.int64, device=cuda)
+    got = sha.sha512(tdata, toff, tlen).cpu()
+    assert [bytes(row) for row in got.numpy()] == [hashlib.sha512(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("last", [1, 5, 15, 17, 1000, 15_001])
+def test_sha512_aligned_last_lane_ending_the_buffer_matches_hashlib(cuda, last):
+    """Lanes on 16-byte boundaries, as ``pack`` lays them out, in a buffer
+    cut at the last lane's last byte (no rounded span, no tail): the
+    kernel must not take the 16-byte loads for that lane, whose last chunk
+    would run past the buffer, and the digests still match hashlib."""
+    rng = random.Random(last)
+    msgs = [rng.randbytes(n) for n in (0, 111, 300)] + [rng.randbytes(last)]
+    offsets, lengths, _ = sha.layout(msgs)
+    packed = sha.pack(msgs)
+    end = 16 * len(msgs) + int(offsets[-1] + lengths[-1])
+    assert int(offsets[-1]) % 16 == 0 and end % 16 != 0
+    data = packed[16 * len(msgs) : end].clone().to(cuda)
+    toff = torch.from_numpy(offsets).to(cuda)
+    tlen = torch.from_numpy(lengths).to(cuda)
+    assert data.numel() == int(offsets[-1] + lengths[-1])
+    got = sha.sha512(data, toff, tlen).cpu()
+    assert [bytes(row) for row in got.numpy()] == [hashlib.sha512(m).digest() for m in msgs]

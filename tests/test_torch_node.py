@@ -249,3 +249,30 @@ def test_log_parser_reads_the_port(tmp_path):
     assert tps > 0 and parser._consensus_latency() > 0, summary
     assert parser._e2e_latency_samples(), summary
     assert parser.timeouts <= 2, summary
+
+
+def reliable_sender_tasks() -> list[asyncio.Task]:
+    return [t for t in asyncio.all_tasks()
+            if t.get_coro().cr_code.co_filename.endswith("reliable_sender.py")]
+
+
+@async_test(timeout=90)
+async def test_node_shutdown_closes_its_reliable_senders(tmp_path):
+    """A stopped node's proposer and batch maker close their senders'
+    connections: left open, they go on retransmitting the node's proposals
+    and batches to whatever listens on its peers' addresses next."""
+    base = BASE + 120
+    committee_file, params_file, key_files = write_testbed(tmp_path, base)
+    nodes = await boot(["port"] * 4, committee_file, params_file, key_files, tmp_path)
+    try:
+        _, writer = await asyncio.open_connection("127.0.0.1", base + 10)
+        write_frame(writer, b"\x01" + (7).to_bytes(8, "big") + b"\xab" * 300)
+        await writer.drain()
+        await asyncio.wait_for(asyncio.gather(*[next_payload_commit(n) for n in nodes]), 60)
+        writer.close()
+        assert reliable_sender_tasks(), "no batch or proposal went out"
+    finally:
+        for n in nodes:
+            await n.shutdown()
+    await asyncio.sleep(0.1)
+    assert reliable_sender_tasks() == []
