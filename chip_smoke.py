@@ -140,15 +140,42 @@ unguarded (any failure ends the run with a non-zero exit):
       at every (mf, mc) the window ran them at, each on a batch the path
       verified at that width (a QC of 3 signatures: mf = mc = 4), and the
       digest kernel against its plain version at the widest drain the node
-      path gave it, timed there.
+      path gave it, timed there;
+11. the mempool's data plane (Conveyor): the README's configuration at the
+   reference sweep's defaults (``README.md:107``,
+   ``benchmark/dataplane_sweep.py:150-160``), four port ``Node``s with two
+   workers each in this process (after the same collection and freeze as
+   10c), ``LogEngine`` stores, keys from ``--seed``, timeout 2 s, 512 B
+   transactions, 250,000 B batches sealed at 50 ms at the latest,
+   ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched``; four sharded port clients
+   (``node.client.run_sharded_client``) at 5,000 tx/s each, 20,000 offered,
+   each to its node's two worker ingress ports in ``benchmark/local.py``'s
+   port layout from 10400. Every ack and availability certificate is checked
+   on the host with the strict single ``Signature.verify``, as in the
+   reference; the card verifies consensus's QCs. After the first payload
+   commit on every node, 10 s are measured (launch counts zeroed just
+   before, read just after). It fails unless every node commits the same
+   sequence of payload blocks, every committed batch reads back from all
+   four stores, parses as a worker batch and hashes to its digest, a
+   certificate of it is in at least three stores and decodes with the seat
+   table and verifies, every sample transaction sent up to 1 s before the
+   window's end is committed, no timeout fires, and the decompression, K2,
+   K3 and the verdict launch while K4 does not. It prints committed and
+   consensus tx/s, p50 and p95 end-to-end and consensus latency, rounds/s,
+   the bundles shed and the clients' rate misses, batches sealed,
+   certificates formed, acks invalid, batches the resolvers fetched, each
+   kernel's launches, ``CudaBackend`` calls by width and the collector's
+   pauses; then holds the cached path's kernels against their plain
+   versions at every (mf, mc) the window ran them at, as 10c does.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3, so 0 for ``sha512``, which phase 3 does not
 run; ``launches_node_path`` from phase 8, the ``fused_*`` and ``widest_*``
 keys from 8d, ``launches_committee`` and the ``committee_*`` keys from
 phase 9, ``launches_config1`` and the ``config1_*`` keys from phase 10c:
-the QC kernels' at its widest width, ``sha512``'s at its widest drain)
-and ``{"ok": true, "device": {...}}``.
+the QC kernels' at its widest width, ``sha512``'s at its widest drain;
+``launches_conveyor`` and the ``conveyor_*`` keys from phase 11) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -248,7 +275,7 @@ SOURCES = {
 }
 # The main path's kernels (phase 3), and a warm cached QC's launches (phase 6).
 PATH_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "msm_partials", "verdict")
-# The node path's kernels (phase 8): the cached path's.
+# The cached path's kernels: the node path's (phase 8) and the data plane's (phase 11).
 PHASE8_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 WARM_QC_LAUNCHES = {"decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "msm_partials": 0,
                     "msm_combine": 2, "verdict": 1}
@@ -340,11 +367,27 @@ SHA_NODE_ROWS = ((1024, 96), (2, 15_000), (3, 15_000), (18, 15_485))
 NODE_N, NODE_PORTS = 4, 10300
 NODE_TIMEOUT_MS, NODE_BATCH_BYTES, NODE_BATCH_DELAY_MS = 1_000, 15_000, 10
 NODE_RATE, NODE_TX_BYTES = 1_000, 512
-# Seconds: for the first payload commit on every node, the measured window,
-# the tail after the clients stop, and how long before the window's end a
-# sample must have been sent to be required in a committed batch.
+# Seconds (phases 10c and 11): for the first payload commit on every node,
+# the measured window, the tail after the clients stop, and how long before
+# the window's end a sample must have been sent to be required in a
+# committed batch.
 NODE_BOOT_S, NODE_WINDOW_S, NODE_DRAIN_S, NODE_SAMPLE_SLACK_S = 30.0, 10.0, 2.5, 1.0
 PHASE10_KERNELS = ("sha512", "decompress", "msm_partials_signed", "msm_combine", "verdict")
+# Phase 11: the data plane (Conveyor) at the README's configuration and the
+# reference sweep's defaults (README.md:107, benchmark/dataplane_sweep.py:
+# 150-160): 4 nodes with 2 workers each, 512 B transactions, 250,000 B
+# batches sealed at 50 ms at the latest, timeout 2 s, 20,000 tx/s offered
+# (the sweep's gate rate, dataplane_sweep.py:21) over four sharded clients,
+# each to its node's two worker ingress ports. Ports in benchmark/local.py's
+# layout (:161-172) from 10400: consensus, transactions, mempool, then each
+# worker's ingress and peer port, four a kind.
+CONVEYOR_N, CONVEYOR_WORKERS, CONVEYOR_PORTS = 4, 2, 10400
+CONVEYOR_TIMEOUT_MS, CONVEYOR_BATCH_BYTES, CONVEYOR_BATCH_DELAY_MS = 2_000, 250_000, 50
+CONVEYOR_RATE, CONVEYOR_TX_BYTES = 20_000, 512
+# Seconds after the clients stop for what they sent to commit: longer than
+# phase 10c's, since a batch here waits for more rounds (end-to-end p95
+# 0.7-1.6 s on the H100 hosts seen, against 0.06-0.2 s in config 1).
+CONVEYOR_DRAIN_S = 5.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1379,12 +1422,230 @@ def digest_checks(seed: int, device, imad_per_s: float) -> list[str]:
     return notes
 
 
+class NodeRun(logging.Handler):
+    """What phases 10c and 11 share of an in-process committee: the nodes,
+    booted from the committee and parameters files in ``tmp``, each block
+    they commit with its time, the records of the named loggers, each with
+    the node whose task emitted it (every task of node i, and of client i,
+    which sends to node i, runs in a context where ``node_of`` is i; see
+    ``spawn``), and the garbage collector's pauses while watched (each stops
+    every thread that wants the interpreter, the nodes' one event loop
+    among them)."""
+
+    def __init__(self, loggers, tmp: str) -> None:
+        super().__init__()
+        self.tmp = tmp
+        self.node_of: contextvars.ContextVar[int] = contextvars.ContextVar("node")
+        self.records: list[tuple[int, logging.LogRecord]] = []
+        self.pauses: list[tuple[int, float]] = []
+        self.nodes, self.commits, self.tasks = [], [], []
+        self._started: dict[int, float] = {}
+        self._levels = {}
+        for name in loggers:
+            logger = logging.getLogger(name)
+            self._levels[name] = logger.level
+            logger.addHandler(self)
+            logger.setLevel(logging.INFO)
+            logger.propagate = False
+
+    def emit(self, record):
+        self.records.append((self.node_of.get(-1), record))
+
+    def spawn(self, i: int, coro, name: str | None = None) -> asyncio.Task:
+        ctx = contextvars.copy_context()
+        ctx.run(self.node_of.set, i)
+        return asyncio.create_task(coro, name=name, context=ctx)
+
+    async def boot(self, secrets, device) -> float:
+        """One port ``Node`` a secret (benchmark logging on), spawned in
+        descending leader order as phase 9 does, and a task a node that
+        records its commits. Returns the seconds it took."""
+        from hotstuff_tpu_torch.node import Node
+
+        index = {s.name: i for i, s in enumerate(secrets)}
+        booted = {}
+        t = time.perf_counter()
+        for s in sorted(secrets, key=lambda s: s.name, reverse=True):
+            i = index[s.name]
+            key_file = f"{self.tmp}/node_{i}.json"
+            s.write(key_file)
+            booted[i] = await self.spawn(i, Node.new(
+                f"{self.tmp}/committee.json", key_file, f"{self.tmp}/db_{i}",
+                parameters_file=f"{self.tmp}/parameters.json", benchmark=True, device=device))
+        self.nodes = [booted[i] for i in range(len(secrets))]
+        self.commits = [[] for _ in self.nodes]
+        self.tasks = [asyncio.create_task(self._record_commits(i)) for i in range(len(self.nodes))]
+        return time.perf_counter() - t
+
+    async def _record_commits(self, i: int) -> None:
+        while True:
+            block = await self.nodes[i].commit.get()
+            self.commits[i].append((time.time(), block))
+
+    def payload_commits(self, i: int) -> list:
+        return [(ts, b) for ts, b in self.commits[i] if b.payload]
+
+    async def first_payload_commit(self, deadline_s: float, alive) -> None:
+        """Waits for a payload block committed on every node, failing after
+        ``deadline_s`` or when ``alive()`` turns false."""
+        deadline = time.monotonic() + deadline_s
+        while not all(self.payload_commits(i) for i in range(len(self.nodes))):
+            check(time.monotonic() < deadline, "no payload block committed on every node")
+            alive()
+            await asyncio.sleep(0.05)
+
+    def first_commits(self) -> tuple[int, dict]:
+        """Checks that every node committed the same sequence of payload
+        blocks (the last two may be on their way). Returns its length and
+        each committed digest's first commit time on any node."""
+        seqs = [[b.digest() for _, b in self.payload_commits(i)] for i in range(len(self.nodes))]
+        short = min(map(len, seqs))
+        check(all(q[:short] == seqs[0][:short] for q in seqs),
+              "the nodes committed different sequences of payload blocks")
+        check(max(map(len, seqs)) - short <= 2, f"payload commits per node {list(map(len, seqs))}")
+        first = {}
+        for i in range(len(self.nodes)):
+            for ts, b in self.payload_commits(i):
+                for d in b.payload:
+                    first[d] = min(ts, first.get(d, ts))
+        return short, first
+
+    def rounds_per_s(self, mark: int, t0: float, t1: float) -> float:
+        """Node 0's committed rounds from its ``mark``-th commit to ``t1``."""
+        rounds = [b.round for ts, b in self.commits[0][mark:] if ts <= t1]
+        before = [b.round for _, b in self.commits[0][:mark]]
+        return (max(rounds) - max(before)) / (t1 - t0) if rounds else 0.0
+
+    def samples(self, first_commit: dict, txs_of: dict, t0: float, t1: float,
+                slack_s: float) -> dict:
+        """Sample transactions, as the harness's LogParser pairs them: client
+        i's send, node i's batch that holds it, that batch's first commit;
+        the committed batch's transactions must hold it. Returns the send-
+        to-commit latencies of those sent in [t0, t1], and the samples sent
+        ``slack_s`` or more before t1 that never committed."""
+        sent, batch_of = {}, {}
+        for i, r in self.records:
+            if r.msg == "Sending sample transaction %d":
+                sent[(i, r.args[0])] = r.created
+            elif r.msg == "Batch %s contains sample tx %d":
+                batch_of[(i, r.args[1])] = r.args[0]
+        found = {}
+        for key, d in batch_of.items():
+            if d in first_commit:
+                sample = b"\x00" + key[1].to_bytes(8, "big")
+                check(any(tx[:9] == sample for tx in txs_of[d]),
+                      f"batch {d!r} lacks the sample transaction {key[1]} it was logged with")
+                found[key] = first_commit[d]
+        expected = [key for key, ts in sent.items() if ts <= t1 - slack_s]
+        missing = [key for key in expected if key not in found]
+        check(expected, "no sample transaction was sent")
+        latency = sorted(found[key] - sent[key] for key, ts in sent.items()
+                         if t0 <= ts <= t1 and key in found)
+        check(latency, "no sample transaction sent in the window committed")
+        return {"expected": len(expected), "missing": len(missing),
+                "unsealed": sum(key not in batch_of for key in missing),
+                "missing_sent_s": (min((sent[k] - t1 for k in missing), default=0.0),
+                                   max((sent[k] - t1 for k in missing), default=0.0)),
+                "samples": len(latency),
+                "p50_ms": 1e3 * float(np.percentile(latency, 50)),
+                "p95_ms": 1e3 * float(np.percentile(latency, 95))}
+
+    def _on_gc(self, phase, info):
+        me = threading.get_ident()
+        if phase == "start":
+            self._started[me] = time.perf_counter()
+        elif me in self._started:
+            self.pauses.append((info["generation"], time.perf_counter() - self._started.pop(me)))
+
+    def watch_gc(self) -> None:
+        gc.callbacks.append(self._on_gc)
+
+    def unwatch_gc(self) -> dict:
+        if self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
+        return {"gc_pauses": len(self.pauses),
+                "gc_full": sum(generation == 2 for generation, _ in self.pauses),
+                "gc_longest_ms": 1e3 * max((secs for _, secs in self.pauses), default=0.0)}
+
+    async def stop(self) -> None:
+        self.unwatch_gc()
+        for task in self.tasks:
+            task.cancel()
+        for node in self.nodes:
+            await node.shutdown()
+        for name, level in self._levels.items():
+            logger = logging.getLogger(name)
+            logger.removeHandler(self)
+            logger.setLevel(level)
+            logger.propagate = True
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+class VerifyWidths:
+    """Wraps ``inner.verify_batch`` (the crypto bridge's workers call it
+    from their threads) to record the signatures of each call and the first
+    batch verified at each (mf, mc), for the kernels' checks against their
+    plain versions at the widths a window ran them at."""
+
+    def __init__(self, inner: CudaBackend) -> None:
+        self.inner, self.real, self.lock = inner, inner.verify_batch, threading.Lock()
+        self.widths, self.sig_counts = {}, {}
+        inner.verify_batch = self._recording
+
+    def _recording(self, msgs, pubs, sigs):
+        self.real(msgs, pubs, sigs)  # raises on rejection
+        n = len(msgs)
+        with self.lock:
+            self.sig_counts[n] = self.sig_counts.get(n, 0) + 1
+            self.widths.setdefault((ov._pad_to_pow2(n), ov._pad_to_pow2(n + 1)),
+                                   (list(msgs), list(pubs), list(sigs)))
+
+    def stop(self) -> tuple[dict, dict]:
+        del self.inner.verify_batch
+        with self.lock:
+            return dict(self.widths), dict(sorted(self.sig_counts.items()))
+
+
+def width_checks(widths: dict, inner: CudaBackend, device, imad_per_s: float, what: str) -> dict:
+    """The cached path's kernels against their plain versions at every
+    (mf, mc) a window ran them at, each on a batch the path verified at that
+    width. Returns the widest width's rows."""
+    check(widths, f"the {what} window verified nothing on the card")
+    qc_rows = {}
+    for (mf, mc), batch in sorted(widths.items()):
+        rows, notes, shapes = kernel_checks(batch, inner, device, imad_per_s, uncached=False)
+        check(shapes[:2] == (mf, mc), f"a batch of {len(batch[0])} ran at mf, mc = {shapes[:2]}")
+        print(f"kernels vs plain on the card at a {what} width (limb-exact), "
+              f"{len(batch[0])} signatures, mf={mf} mc={mc}:")
+        for line in notes:
+            print("  " + line)
+        qc_rows = rows
+    return qc_rows
+
+
+def freeze_heap() -> str:
+    """Collect, then freeze what the earlier phases left alive out of the
+    garbage collector: a full collection traverses every tracked object and
+    stops the in-process nodes' event loop while it runs, and node
+    processes would not hold that heap. Returns what it did, for the log."""
+    t = time.perf_counter()
+    gc.collect()
+    collect_ms = (time.perf_counter() - t) * 1e3
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    t = time.perf_counter()
+    gc.collect()
+    frozen_collect_ms = (time.perf_counter() - t) * 1e3
+    return (f"a full collection took {collect_ms:.1f} ms, then {frozen:,} objects were frozen "
+            f"out of the collector and a full collection took {frozen_collect_ms:.1f} ms")
+
+
 async def config1(seed: int, device) -> dict:
     """Four port nodes at BASELINE config 1 (``fab local``) in this process,
     four port clients at 250 tx/s each; see phase 10c in the docstring."""
     from hotstuff_tpu_torch.node import Committee as NodeCommittee
-    from hotstuff_tpu_torch.node import Node, Secret
     from hotstuff_tpu_torch.node import Parameters as NodeParameters
+    from hotstuff_tpu_torch.node import Secret
     from hotstuff_tpu_torch.node.client import run_client
 
     rng = random.Random(seed * 7919 + 11)
@@ -1396,41 +1657,19 @@ async def config1(seed: int, device) -> dict:
         1, ("127.0.0.1", base + 10 + i), ("127.0.0.1", base + 20 + i))
         for i, s in enumerate(secrets)})
     tmp = tempfile.mkdtemp(prefix="chip_smoke_nodes_")
-    committee_file, params_file = f"{tmp}/committee.json", f"{tmp}/parameters.json"
-    NodeCommittee(consensus, mempool).write(committee_file)
+    NodeCommittee(consensus, mempool).write(f"{tmp}/committee.json")
     NodeParameters(
         Parameters(timeout_delay=NODE_TIMEOUT_MS),
         MempoolParameters(batch_size=NODE_BATCH_BYTES, max_batch_delay=NODE_BATCH_DELAY_MS,
                           device_batch_digests=True),
-    ).write(params_file)
+    ).write(f"{tmp}/parameters.json")
     # The certificate path's backend as a user picks it: the variable, read
     # at the first ``get_backend()``.
     os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
     crypto._BACKEND = None
     cert_arena.reset()
 
-    # The node a log line comes from: every task of node i (and client i,
-    # which sends to node i) runs in a context where ``node_of`` is i.
-    node_of: contextvars.ContextVar[int] = contextvars.ContextVar("node")
-    records: list[tuple[int, logging.LogRecord]] = []
-
-    class Capture(logging.Handler):
-        def emit(self, record):
-            records.append((node_of.get(-1), record))
-
-    def in_context_of(i: int, coro, name: str | None = None) -> asyncio.Task:
-        ctx = contextvars.copy_context()
-        ctx.run(node_of.set, i)
-        return asyncio.create_task(coro, name=name, context=ctx)
-
-    capture = Capture()
-    levels = {}
-    for name in ("client", "mempool"):
-        logger = logging.getLogger(name)
-        levels[name] = logger.level
-        logger.addHandler(capture)
-        logger.setLevel(logging.INFO)
-        logger.propagate = False
+    run = NodeRun(("client", "mempool"), tmp)
     drains: list[list[bytes]] = []
     real_digest = processor._device_digest_many
 
@@ -1439,100 +1678,45 @@ async def config1(seed: int, device) -> dict:
         return real_digest(batches, dev)
 
     processor._device_digest_many = recording
-    nodes, consumers, clients = [], [], []
-    commits: list[list[tuple[float, object]]] = [[] for _ in range(NODE_N)]
-    # The collector's pauses in the window: each stops every thread that
-    # wants the interpreter, the four nodes' event loop among them.
-    pauses: list[tuple[int, float]] = []
-    started: dict[int, float] = {}
-
-    def on_gc(phase, info):
-        me = threading.get_ident()
-        if phase == "start":
-            started[me] = time.perf_counter()
-        elif me in started:
-            pauses.append((info["generation"], time.perf_counter() - started.pop(me)))
-
+    clients = []
     out = {}
     try:
-        index = {s.name: i for i, s in enumerate(secrets)}
-        # Spawned in descending leader order, as phase 9 does.
-        by_key = sorted(secrets, key=lambda s: s.name, reverse=True)
-        t = time.perf_counter()
-        booted = {}
-        for s in by_key:
-            i = index[s.name]
-            key_file = f"{tmp}/node_{i}.json"
-            s.write(key_file)
-            booted[i] = await in_context_of(i, Node.new(
-                committee_file, key_file, f"{tmp}/db_{i}", parameters_file=params_file,
-                benchmark=True, device=device))
-        nodes = [booted[i] for i in range(NODE_N)]
-        out["boot_s"] = time.perf_counter() - t
+        out["boot_s"] = await run.boot(secrets, device)
+        nodes = run.nodes
         backend = crypto.get_backend()
         check(isinstance(backend, BatchingBackend) and isinstance(backend.inner, CudaBackend),
               f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched installed {backend!r}")
-
-        async def consume(i):
-            while True:
-                block = await nodes[i].commit.get()
-                commits[i].append((time.time(), block))
-
-        consumers = [asyncio.create_task(consume(i)) for i in range(NODE_N)]
+        t = time.perf_counter()
         addresses = [("127.0.0.1", base + 10 + i) for i in range(NODE_N)]
-        clients = [in_context_of(i, run_client(
+        clients = [run.spawn(i, run_client(
             addresses[i], NODE_TX_BYTES, NODE_RATE // NODE_N, NODE_TIMEOUT_MS, addresses,
             duration=600)) for i in range(NODE_N)]
 
-        def payload_commits(i):
-            return [(ts, b) for ts, b in commits[i] if b.payload]
-
-        deadline = time.monotonic() + NODE_BOOT_S
-        while not all(payload_commits(i) for i in range(NODE_N)):
-            check(time.monotonic() < deadline, "no payload block committed on every node")
+        def alive():
             for n in nodes:
                 check(not n.mempool.failed.done(), "a mempool actor died")
-            await asyncio.sleep(0.05)
-        out["first_commit_s"] = time.perf_counter() - t
 
-        # The widths the card's verifications ran at in the window: the
-        # signatures of each inner call, and the first batch verified at
-        # each (mf, mc), for the kernels' checks against their plain versions.
-        # The crypto bridge's workers call it from their threads.
-        inner, widths, sig_counts = backend.inner, {}, {}
-        real_verify, lock = inner.verify_batch, threading.Lock()
-
-        def recording_verify(msgs, pubs, sigs):
-            real_verify(msgs, pubs, sigs)  # raises on rejection
-            n = len(msgs)
-            with lock:
-                sig_counts[n] = sig_counts.get(n, 0) + 1
-                widths.setdefault((ov._pad_to_pow2(n), ov._pad_to_pow2(n + 1)),
-                                  (list(msgs), list(pubs), list(sigs)))
+        await run.first_payload_commit(NODE_BOOT_S, alive)
+        out["first_commit_s"] = out["boot_s"] + time.perf_counter() - t
 
         # The measured window: counts zeroed just before, read just after.
-        gc.callbacks.append(on_gc)
+        run.watch_gc()
         timeouts0 = sum(n.consensus.core.timeouts_fired for n in nodes)
-        marks = [len(c) for c in commits]
+        mark = len(run.commits[0])
         mk.reset_launches()
         sha.LAUNCHES["sha512"] = 0
         processor.reset_stats()
-        inner.verify_batch = recording_verify
+        recorder = VerifyWidths(backend.inner)
         t0 = time.time()
         await asyncio.sleep(NODE_WINDOW_S)
         t1 = time.time()
-        gc.callbacks.remove(on_gc)
-        del inner.verify_batch
+        out.update(run.unwatch_gc())
+        out["widths"], out["sig_counts"] = recorder.stop()
         out["launches"] = {**mk.LAUNCHES, **sha.LAUNCHES}
-        with lock:
-            out["widths"], out["sig_counts"] = dict(widths), dict(sorted(sig_counts.items()))
-        out["inner"] = inner
+        out["inner"] = backend.inner
         out["stats"] = dict(processor.STATS)
         out["drain_sizes"] = dict(sorted(processor.DRAIN_SIZES.items()))
         out["timeouts"] = sum(n.consensus.core.timeouts_fired for n in nodes) - timeouts0
-        out["gc_pauses"] = len(pauses)
-        out["gc_full"] = sum(generation == 2 for generation, _ in pauses)
-        out["gc_longest_ms"] = 1e3 * max((secs for _, secs in pauses), default=0.0)
         for task in clients:
             task.cancel()
         await asyncio.sleep(NODE_DRAIN_S)  # what was sent commits
@@ -1540,20 +1724,9 @@ async def config1(seed: int, device) -> dict:
             if n.mempool.failed.done():
                 n.mempool.failed.result()  # raises what killed the actor
 
-        # Every node committed the same sequence of payload blocks.
-        seqs = [[b.digest() for _, b in payload_commits(i)] for i in range(NODE_N)]
-        short = min(map(len, seqs))
-        check(all(s[:short] == seqs[0][:short] for s in seqs),
-              "the nodes committed different sequences of payload blocks")
-        check(max(map(len, seqs)) - short <= 2, f"payload commits per node {list(map(len, seqs))}")
-        out["payload_blocks"] = short
+        out["payload_blocks"], first_commit = run.first_commits()
         # Every committed digest reads back from all four stores, and is the
         # SHA-512/32 of the stored bytes.
-        first_commit = {}
-        for i in range(NODE_N):
-            for ts, b in payload_commits(i):
-                for d in b.payload:
-                    first_commit[d] = min(ts, first_commit.get(d, ts))
         txs_of = {}
         for d in first_commit:
             stored = [await n.store.read(d.data) for n in nodes]
@@ -1569,56 +1742,21 @@ async def config1(seed: int, device) -> dict:
         in_window = [d for d, ts in first_commit.items() if t0 <= ts <= t1]
         out["tx_per_s"] = sum(len(txs_of[d]) for d in in_window) / (t1 - t0)
         out["batches_per_s"] = len(in_window) / (t1 - t0)
-        rounds = [b.round for ts, b in commits[0][marks[0]:] if ts <= t1]
-        before = [b.round for _, b in commits[0][:marks[0]]]
-        out["rounds_per_s"] = (max(rounds) - max(before)) / (t1 - t0) if rounds else 0.0
-        # Sample transactions, as the harness's LogParser pairs them: client
-        # i's send, node i's batch that holds it, that batch's first commit;
-        # the committed batch's bytes must hold the transaction.
-        sent, batch_of = {}, {}
-        for i, r in records:
-            if r.msg == "Sending sample transaction %d":
-                sent[(i, r.args[0])] = r.created
-            elif r.msg == "Batch %s contains sample tx %d":
-                batch_of[(i, r.args[1])] = r.args[0]
-        found = {}
-        for key, d in batch_of.items():
-            if d in first_commit:
-                sample = b"\x00" + key[1].to_bytes(8, "big")
-                check(any(tx[:9] == sample for tx in txs_of[d]),
-                      f"batch {d!r} lacks the sample transaction {key[1]} it was logged with")
-                found[key] = first_commit[d]
-        expected = [key for key, ts in sent.items() if ts <= t1 - NODE_SAMPLE_SLACK_S]
-        missing = [key for key in expected if key not in found]
-        unsealed = sum(key not in batch_of for key in missing)
-        check(expected and not missing,
-              f"{len(missing)} of {len(expected)} sample transactions never committed "
-              f"({unsealed} never sealed into a batch; sent "
-              f"{min((sent[k] - t1 for k in missing), default=0):.2f} to "
-              f"{max((sent[k] - t1 for k in missing), default=0):.2f} s from the window's end)")
-        latency = sorted(found[key] - sent[key] for key, ts in sent.items()
-                         if t0 <= ts <= t1 and key in found)
-        check(latency, "no sample transaction sent in the window committed")
-        out["samples"] = len(latency)
-        out["p50_ms"] = 1e3 * float(np.percentile(latency, 50))
-        out["p95_ms"] = 1e3 * float(np.percentile(latency, 95))
+        out["rounds_per_s"] = run.rounds_per_s(mark, t0, t1)
+        out.update(run.samples(first_commit, txs_of, t0, t1, NODE_SAMPLE_SLACK_S))
+        lo, hi = out["missing_sent_s"]
+        check(out["missing"] == 0,
+              f"{out['missing']} of {out['expected']} sample transactions never committed "
+              f"({out['unsealed']} never sealed into a batch; sent {lo:.2f} to {hi:.2f} s from "
+              f"the window's end)")
         out["drains"] = drains
         out["window_s"] = t1 - t0
     finally:
-        if on_gc in gc.callbacks:
-            gc.callbacks.remove(on_gc)
-        for task in clients + consumers:
+        for task in clients:
             task.cancel()
-        for n in nodes:
-            await n.shutdown()
+        await run.stop()
         processor._device_digest_many = real_digest
-        for name, level in levels.items():
-            logger = logging.getLogger(name)
-            logger.removeHandler(capture)
-            logger.setLevel(level)
-            logger.propagate = True
         del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
-        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -1627,17 +1765,7 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
     drains. Returns (launches in the measured window, the digest kernel's
     JSON row, the QC kernels' rows at the widest width)."""
     # The four nodes share this process with what phases 1-10b left alive.
-    # A full collection traverses every tracked object and stops the event
-    # loop while it runs; freeze the earlier phases' objects out of it, as
-    # four node processes would not hold them.
-    t = time.perf_counter()
-    gc.collect()
-    collect_ms = (time.perf_counter() - t) * 1e3
-    gc.freeze()
-    frozen = gc.get_freeze_count()
-    t = time.perf_counter()
-    gc.collect()
-    frozen_collect_ms = (time.perf_counter() - t) * 1e3
+    frozen = freeze_heap()
     t = time.perf_counter()
     run = asyncio.run(config1(seed, device))
     phase_s = time.perf_counter() - t
@@ -1655,9 +1783,7 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
           f"{NODE_BATCH_BYTES} B, max batch delay {NODE_BATCH_DELAY_MS} ms, device digests on; "
           f"{NODE_N} clients at {NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B; booted in "
           f"{run['boot_s']:.2f} s, first payload commit on every node at {run['first_commit_s']:.2f} "
-          f"s; phase {phase_s:.1f} s; before it a full collection took {collect_ms:.1f} ms, "
-          f"then {frozen:,} objects were frozen out of the collector and a full collection "
-          f"took {frozen_collect_ms:.1f} ms")
+          f"s; phase {phase_s:.1f} s; before it {frozen}")
     print(f"config 1 on {card}: over {run['window_s']:.2f} s: {run['tx_per_s']:.1f} committed tx/s "
           f"({run['batches_per_s']:.1f} batches/s), {run['rounds_per_s']:.2f} rounds/s, sample tx "
           f"send-to-commit latency p50 {run['p50_ms']:.1f} ms, p95 {run['p95_ms']:.1f} ms "
@@ -1670,19 +1796,7 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
           f"{stats['device_batches']}, on the host {stats['host_batches']}; launches "
           + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
     print(f"config 1 on {card}: CudaBackend calls by signatures {run['sig_counts']}")
-    # The QC kernels against their plain versions at every width the window
-    # ran them at, each on a batch the path verified at that width.
-    check(run["widths"], "the window verified nothing on the card")
-    qc_rows = {}
-    for (mf, mc), batch in sorted(run["widths"].items()):
-        rows, notes, shapes = kernel_checks(batch, run["inner"], device, imad_per_s,
-                                            uncached=False)
-        check(shapes[:2] == (mf, mc), f"a batch of {len(batch[0])} ran at mf, mc = {shapes[:2]}")
-        print(f"kernels vs plain on the card at a config 1 width (limb-exact), "
-              f"{len(batch[0])} signatures, mf={mf} mc={mc}:")
-        for line in notes:
-            print("  " + line)
-        qc_rows = rows  # the widest width's rows go into the JSON line
+    qc_rows = width_checks(run["widths"], run["inner"], device, imad_per_s, "config 1")
     # The kernel at the widest drain the node path gave it, against its plain
     # version on the same inputs.
     msgs = max(run["drains"], key=len)
@@ -1698,6 +1812,210 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
                config1_tx_per_s=run["tx_per_s"], config1_p50_ms=run["p50_ms"],
                config1_p95_ms=run["p95_ms"], config1_rounds_per_s=run["rounds_per_s"])
     return launches, row, qc_rows
+
+
+async def conveyor(seed: int, device) -> dict:
+    """Four port nodes with two workers each, and four sharded port clients
+    at 5,000 tx/s each, in this process; see phase 11 in the docstring."""
+    from hotstuff_tpu_torch.mempool import WorkerEntry
+    from hotstuff_tpu_torch.mempool.dataplane import AvailabilityCert, WorkerSeatTable
+    from hotstuff_tpu_torch.mempool.dataplane import messages as dpm
+    from hotstuff_tpu_torch.node import Committee as NodeCommittee
+    from hotstuff_tpu_torch.node import Parameters as NodeParameters
+    from hotstuff_tpu_torch.node import Secret
+    from hotstuff_tpu_torch.node.client import run_sharded_client
+
+    n, base = CONVEYOR_N, CONVEYOR_PORTS
+    rng = random.Random(seed * 7919 + 23)
+    secrets = [Secret(*crypto.generate_keypair(seed=rng.randbytes(32))) for _ in range(n)]
+
+    def ingress(w: int, i: int) -> tuple[str, int]:
+        return ("127.0.0.1", base + (3 + 2 * w) * n + i)
+
+    consensus = Committee({s.name: Authority(1, ("127.0.0.1", base + i))
+                           for i, s in enumerate(secrets)})
+    mempool = MempoolCommittee({s.name: MempoolAuthority(
+        1, ("127.0.0.1", base + n + i), ("127.0.0.1", base + 2 * n + i),
+        [WorkerEntry(ingress(w, i), ("127.0.0.1", base + (4 + 2 * w) * n + i))
+         for w in range(CONVEYOR_WORKERS)])
+        for i, s in enumerate(secrets)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conveyor_")
+    NodeCommittee(consensus, mempool).write(f"{tmp}/committee.json")
+    NodeParameters(
+        Parameters(timeout_delay=CONVEYOR_TIMEOUT_MS),
+        MempoolParameters(batch_size=CONVEYOR_BATCH_BYTES, max_batch_delay=CONVEYOR_BATCH_DELAY_MS,
+                          workers=CONVEYOR_WORKERS),
+    ).write(f"{tmp}/parameters.json")
+    os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
+    crypto._BACKEND = None
+    cert_arena.reset()
+
+    run = NodeRun(("client", "mempool", "consensus"), tmp)
+    clients = []
+    out = {}
+
+    def counts() -> dict:
+        workers = [w for node in run.nodes for w in node.mempool.dataplane.workers]
+        return {
+            "sealed": sum(w.batches_sealed for w in workers),
+            "certs_formed": sum(w.certs_formed for w in workers),
+            "certs_failed": sum(w.certs_failed for w in workers),
+            "acks_invalid": sum(w.acks_invalid for w in workers),
+            "certs_stored": sum(w.peer_handler.certs_stored for w in workers),
+            "certs_rejected": sum(w.peer_handler.certs_rejected for w in workers),
+            "shed": sum(w.ingress.shed for w in workers),
+            "fetched": sum(node.resolver.batches_fetched for node in run.nodes),
+            "unresolved": sum(node.resolver.unresolved for node in run.nodes),
+        }
+
+    try:
+        out["boot_s"] = await run.boot(secrets, device)
+        nodes = run.nodes
+        for node in nodes:
+            check(node.mempool.dataplane is not None and node.resolver_task is not None
+                  and len(node.mempool.dataplane.workers) == CONVEYOR_WORKERS,
+                  "a node started without its data plane or its commit resolver")
+        backend = crypto.get_backend()
+        check(isinstance(backend, BatchingBackend) and isinstance(backend.inner, CudaBackend),
+              f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched installed {backend!r}")
+        t = time.perf_counter()
+        fronts = [("127.0.0.1", base + n + i) for i in range(n)]
+        clients = [run.spawn(i, run_sharded_client(
+            [ingress(w, i) for w in range(CONVEYOR_WORKERS)], CONVEYOR_TX_BYTES,
+            CONVEYOR_RATE // n, CONVEYOR_TIMEOUT_MS, fronts, duration=600)) for i in range(n)]
+
+        def alive():
+            check(not any(c.done() for c in clients), "a client ended")
+
+        await run.first_payload_commit(NODE_BOOT_S, alive)
+        out["first_commit_s"] = out["boot_s"] + time.perf_counter() - t
+
+        # The measured window: counts zeroed (or read) just before, read
+        # just after.
+        run.watch_gc()
+        timeouts0 = sum(node.consensus.core.timeouts_fired for node in nodes)
+        mark = len(run.commits[0])
+        before = counts()
+        mk.reset_launches()
+        sha.LAUNCHES["sha512"] = 0
+        recorder = VerifyWidths(backend.inner)
+        t0 = time.time()
+        await asyncio.sleep(NODE_WINDOW_S)
+        t1 = time.time()
+        out.update(run.unwatch_gc())
+        out["widths"], out["sig_counts"] = recorder.stop()
+        out["launches"] = {**mk.LAUNCHES, **sha.LAUNCHES}
+        after = counts()
+        out["inner"] = backend.inner
+        out["counts"] = {k: after[k] - before[k] for k in after}
+        out["timeouts"] = sum(node.consensus.core.timeouts_fired for node in nodes) - timeouts0
+        for task in clients:
+            task.cancel()
+        await asyncio.sleep(CONVEYOR_DRAIN_S)  # what was sent commits
+        out["counts_total"] = counts()
+
+        out["payload_blocks"], first_commit = run.first_commits()
+        # Every committed batch reads back from all four stores, parses as a
+        # worker batch and hashes to its digest; a certificate of it is in at
+        # least three stores, decodes with the seat table and verifies.
+        seats = WorkerSeatTable.for_committee(mempool)
+        txs_of, certs = {}, 0
+        for d in first_commit:
+            stored = [await node.store.read(d.data) for node in nodes]
+            check(stored[0] is not None and all(x == stored[0] for x in stored),
+                  f"batch {d!r} does not read back equal from every store")
+            check(hashlib.sha512(stored[0]).digest()[:32] == d.data,
+                  f"batch {d!r}: the stored bytes hash to another digest")
+            _, n_txs, _, blob = dpm.decode_worker_batch(stored[0])
+            txs_of[d] = dpm.split_blob(blob)
+            check(len(txs_of[d]) == n_txs, f"batch {d!r} holds {len(txs_of[d])} of {n_txs} txs")
+            held = [raw for node in nodes
+                    if (raw := await node.store.read(dpm.cert_key(d.data))) is not None]
+            check(len(held) >= 3, f"batch {d!r}: a certificate in {len(held)} stores")
+            for raw in held:
+                cert = AvailabilityCert.decode(raw, seats)
+                check(cert.digest == d, f"the certificate under {d!r} is another batch's")
+                cert.verify(mempool)  # raises CertError
+                certs += 1
+        out["committed_batches"], out["certs_verified"] = len(first_commit), certs
+        in_window = [d for d, ts in first_commit.items() if t0 <= ts <= t1]
+        out["tx_per_s"] = sum(len(txs_of[d]) for d in in_window) / (t1 - t0)
+        out["batches_per_s"] = len(in_window) / (t1 - t0)
+        out["rounds_per_s"] = run.rounds_per_s(mark, t0, t1)
+        # Consensus: a batch from its first proposal to its first commit,
+        # for the batches first proposed in the window (LogParser's
+        # consensus latency; its throughput over that span); and what the
+        # clients logged of the back-pressure.
+        created, out["rate_misses"], out["client_sheds"] = {}, 0, 0
+        for _, r in run.records:
+            if r.msg == "Created %s -> %s":
+                created[r.args[1]] = min(r.created, created.get(r.args[1], r.created))
+            elif r.msg == "Transaction rate too high for this client" and t0 <= r.created <= t1:
+                out["rate_misses"] += 1
+            elif r.msg == "Shed notifications: %d":
+                out["client_sheds"] = max(out["client_sheds"], r.args[0])
+        proposed = [d for d, ts in created.items() if t0 <= ts <= t1 and d in first_commit]
+        check(proposed, "no batch proposed in the window committed")
+        consensus_lat = sorted(first_commit[d] - created[d] for d in proposed)
+        span = max(first_commit[d] for d in proposed) - min(created[d] for d in proposed)
+        out["consensus_tx_per_s"] = sum(len(txs_of[d]) for d in proposed) / span
+        out["consensus_p50_ms"] = 1e3 * float(np.percentile(consensus_lat, 50))
+        out["consensus_p95_ms"] = 1e3 * float(np.percentile(consensus_lat, 95))
+        out.update(run.samples(first_commit, txs_of, t0, t1, NODE_SAMPLE_SLACK_S))
+        out["window_s"] = t1 - t0
+    finally:
+        for task in clients:
+            task.cancel()
+        await run.stop()
+        del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
+    return out
+
+
+def conveyor_phase(seed: int, card: str, device, imad_per_s: float):
+    """Phase 11 and the QC kernels at its widths. Returns (launches in the
+    measured window, the QC kernels' rows at the widest width)."""
+    frozen = freeze_heap()  # what phase 10c left alive, as before it
+    t = time.perf_counter()
+    run = asyncio.run(conveyor(seed, device))
+    phase_s = time.perf_counter() - t
+    launches, c = run["launches"], run["counts"]
+    print(f"conveyor on {card}: {CONVEYOR_N} port nodes x {CONVEYOR_WORKERS} workers (LogEngine "
+          f"stores, keys from --seed), HOTSTUFF_CRYPTO_BACKEND=cuda-batched, timeout "
+          f"{CONVEYOR_TIMEOUT_MS} ms, batch {CONVEYOR_BATCH_BYTES} B, max batch delay "
+          f"{CONVEYOR_BATCH_DELAY_MS} ms; {CONVEYOR_N} sharded clients at "
+          f"{CONVEYOR_RATE // CONVEYOR_N} tx/s of {CONVEYOR_TX_BYTES} B ({CONVEYOR_RATE} offered); "
+          f"booted in {run['boot_s']:.2f} s, first payload commit on every node at "
+          f"{run['first_commit_s']:.2f} s; phase {phase_s:.1f} s; before it {frozen}")
+    print(f"conveyor on {card}: over {run['window_s']:.2f} s: {run['tx_per_s']:.1f} committed tx/s "
+          f"({run['batches_per_s']:.1f} batches/s), consensus {run['consensus_tx_per_s']:.1f} tx/s, "
+          f"{run['rounds_per_s']:.2f} rounds/s; end-to-end latency p50 {run['p50_ms']:.1f} ms, "
+          f"p95 {run['p95_ms']:.1f} ms ({run['samples']} samples); consensus latency p50 "
+          f"{run['consensus_p50_ms']:.1f} ms, p95 {run['consensus_p95_ms']:.1f} ms")
+    print(f"conveyor on {card}: in the window {c['shed']} bundles shed by the workers, "
+          f"{run['rate_misses']} rate misses (\"Transaction rate too high\"), the clients' last "
+          f"shed count {run['client_sheds']}; batches sealed {c['sealed']}, certificates formed "
+          f"{c['certs_formed']} (failed {c['certs_failed']}), acks invalid {c['acks_invalid']}, peer "
+          f"certificates stored {c['certs_stored']} (rejected {c['certs_rejected']}), batches the "
+          f"resolvers fetched {c['fetched']} (unresolved {c['unresolved']}); whole run: "
+          f"{run['counts_total']}")
+    print(f"conveyor on {card}: every node committed the same {run['payload_blocks']} payload "
+          f"blocks; {run['committed_batches']} committed batches read back from all "
+          f"{CONVEYOR_N} stores, parse and hash to their digests; {run['certs_verified']} stored "
+          f"certificates verified; {run['timeouts']} timeouts; sample transactions sent "
+          f"{NODE_SAMPLE_SLACK_S:.0f} s or more before the window's end: {run['expected']}, "
+          f"{run['missing']} not committed ({run['unsealed']} never sealed); the garbage "
+          f"collector ran {run['gc_pauses']} times in the window ({run['gc_full']} full), the "
+          f"longest {run['gc_longest_ms']:.1f} ms")
+    print(f"conveyor on {card}: launches " + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()))
+          + f"; CudaBackend calls by signatures {run['sig_counts']}")
+    check(run["missing"] == 0, f"{run['missing']} of {run['expected']} sample transactions never "
+          f"committed ({run['unsealed']} never sealed into a batch)")
+    check(run["timeouts"] == 0, f"{run['timeouts']} timeouts fired in the measured window")
+    for name in PHASE8_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the data plane's path")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"the data plane's path launched K4 or the root alone: {launches}")
+    return launches, width_checks(run["widths"], run["inner"], device, imad_per_s, "conveyor")
 
 
 def main() -> int:
@@ -1853,6 +2171,9 @@ def main() -> int:
           f"{sass_counts()}")
     config1_launches, sha_row, config1_rows = node_phase(args.seed, card, device, imad_per_s)
 
+    # 11. the data plane: four nodes with two workers each at 20,000 tx/s
+    conveyor_launches, conveyor_rows = conveyor_phase(args.seed, card, device, imad_per_s)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict"):
@@ -1866,12 +2187,14 @@ def main() -> int:
             "launches_node_path": node_launches[name],
             "launches_committee": committee_launches[name],
             "launches_config1": config1_launches[name],
+            "launches_conveyor": conveyor_launches[name],
         }
         for prefix, extra in (("fused", fused_rows), ("widest", wide_rows),
-                              ("committee", committee_rows), ("config1", config1_rows)):
+                              ("committee", committee_rows), ("config1", config1_rows),
+                              ("conveyor", conveyor_rows)):
             row_x = extra.get(name)
             if row_x is not None:
-                width = prefix if prefix in ("committee", "config1") else f"{prefix} flush"
+                width = prefix if prefix in ("committee", "config1", "conveyor") else f"{prefix} flush"
                 entry["shape"] += f"; {width} {row_x['shape']}"
                 entry.update({f"{prefix}_{key}": row_x[key]
                               for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
@@ -1882,6 +2205,7 @@ def main() -> int:
         "launches": 0, "library_ms": None, **sha_row,
         "launches_node_path": 0, "launches_committee": 0,
         "launches_config1": config1_launches["sha512"],
+        "launches_conveyor": conveyor_launches["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

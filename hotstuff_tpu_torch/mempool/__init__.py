@@ -3,8 +3,9 @@
 
 Port of ``hotstuff_tpu/mempool/__init__.py``: bulk transaction data travels
 mempool-to-mempool as batches; consensus orders only their 32-byte
-digests. The data plane (``mempool/dataplane/``) is not ported yet, apart
-from its frame tag and store key.
+digests. ``workers > 0`` adds the data plane (``mempool/dataplane/``):
+worker shards whose batches reach consensus with availability
+certificates.
 """
 
 from .config import Authority, Committee, Parameters, WorkerEntry

@@ -1,14 +1,12 @@
 """Mempool configuration (reference ``mempool/src/config.rs``).
 
-Port copy of ``hotstuff_tpu/mempool/config.py``. The mempool keeps its own
-committee type with its own address space, two addresses per node:
+Port copy of ``hotstuff_tpu/mempool/config.py``, whole. The mempool keeps
+its own committee type with its own address space, two addresses per node:
 ``transactions_address`` for clients and ``mempool_address`` for peer
-mempools (reference ``mempool/src/config.rs:50-64``). ``Parameters`` is
-whole, ``device_batch_digests`` included; the data plane's fields
-(``workers`` and its watermarks) and ``WorkerEntry`` are parsed and kept,
-but the data plane itself is not ported, so ``Mempool.spawn`` refuses
-``workers > 0``. Left out: ``Committee.worker_peers`` and
-``worker_address``, which only the data plane calls.
+mempools (reference ``mempool/src/config.rs:50-64``), plus the data
+plane's worker entries (``WorkerEntry``: a client ingress and a peer port
+per shard) and their lookups (``workers_of``, ``worker_peers``,
+``worker_address``).
 """
 
 from __future__ import annotations
@@ -32,11 +30,18 @@ class Parameters:
     sync_retry_nodes: int = 3  # number of nodes
     batch_size: int = 500_000  # bytes
     max_batch_delay: int = 100  # ms
-    # The data plane's worker shards per node (0: none, the legacy
-    # BatchMaker path). Kept so that parameter files of either package
-    # read the same; the port refuses > 0.
+    # -- the data plane (mempool/dataplane/) ---------------------------------
+    # Worker shards per node: 0 disables the data plane (the legacy
+    # BatchMaker path always runs); >0 spawns min(workers,
+    # committee-declared worker entries) shards, each with its own
+    # client-ingress port, peer port, bounded ingress queue and
+    # availability-cert pipeline.
     workers: int = 0
+    # Per-worker ingress bound, in client BUNDLES. Arrivals beyond it are
+    # shed with a client-visible b"Shed" reply.
     worker_ingress_capacity: int = 512
+    # Store-depth watermarks, in sealed-but-uncommitted batches per node:
+    # sealing gates at >= high and resumes at <= low (hysteresis).
     store_high_watermark: int = 256
     store_low_watermark: int = 128
     # Hash the batches a processor finds pending together in one call of
@@ -57,7 +62,9 @@ class Parameters:
 
 @dataclass
 class WorkerEntry:
-    """One worker shard's address pair (the data plane's; parsed only)."""
+    """One worker shard's address pair: ``transactions_address`` faces
+    clients, ``worker_address`` faces peer workers (batch dissemination,
+    acks, certs, batch requests)."""
 
     transactions_address: tuple[str, int]
     worker_address: tuple[str, int]
@@ -68,6 +75,9 @@ class Authority:
     stake: Stake
     transactions_address: tuple[str, int]
     mempool_address: tuple[str, int]
+    # Data-plane worker shards (empty: the legacy single-lane mempool).
+    # Worker ``w`` of every node disseminates to worker ``w`` of every
+    # peer, so entries pair up positionally across the committee.
     workers: list[WorkerEntry] = field(default_factory=list)
 
 
@@ -109,3 +119,23 @@ class Committee:
     def workers_of(self, name: PublicKey) -> list[WorkerEntry]:
         a = self.authorities.get(name)
         return a.workers if a else []
+
+    def worker_peers(
+        self, name: PublicKey, worker_id: int
+    ) -> list[tuple[PublicKey, tuple[str, int]]]:
+        """(peer, worker_address) of every OTHER node's worker shard
+        ``worker_id``: the dissemination fan-out of our shard
+        ``worker_id``. Peers without that shard are skipped."""
+        return [
+            (pk, a.workers[worker_id].worker_address)
+            for pk, a in self.authorities.items()
+            if pk != name and worker_id < len(a.workers)
+        ]
+
+    def worker_address(
+        self, name: PublicKey, worker_id: int
+    ) -> tuple[str, int] | None:
+        a = self.authorities.get(name)
+        if a is None or worker_id >= len(a.workers):
+            return None
+        return a.workers[worker_id].worker_address

@@ -7,9 +7,10 @@ transactions on ``transactions_address`` and peer messages on
 ``mempool.rs:119,166``; the peer one ACKs on frame arrival). Peer ``Batch``
 messages are ACKed then routed to a Processor; ``BatchRequest``s go to the
 Helper; a data-plane batch frame served raw through the sync path is
-stored under its digest. The data plane itself (``workers > 0``) is not
-ported: ``spawn`` refuses it. The processors take ``device`` for their
-digest kernel.
+stored under its digest. With ``workers > 0`` and worker entries for this
+node in the committee, ``spawn`` also starts the data plane
+(``dataplane.DataPlane``), which needs the signature service: its acks
+are signed. The processors take ``device`` for their digest kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from hotstuff_tpu_torch.utils.tasks import log_task_death
 from . import messages
 from .batch_maker import BatchMaker
 from .config import Committee, Parameters
+from .dataplane import DataPlane
 from .dataplane.messages import TAG_BATCH as _DP_TAG_BATCH
 from .helper import Helper
 from .processor import Processor
@@ -99,6 +101,7 @@ class Mempool:
         tx_consensus: asyncio.Queue,  # batch digests out to consensus
         benchmark: bool = False,
         device="cuda",
+        signature_service=None,  # required for the data plane
     ) -> None:
         self.name = name
         self.committee = committee
@@ -108,6 +111,8 @@ class Mempool:
         self.tx_consensus = tx_consensus
         self.benchmark = benchmark
         self.device = device
+        self.signature_service = signature_service
+        self.dataplane = None  # the data plane's worker shards, when spawned
         self.tasks: list[asyncio.Task] = []
         self.receivers: list[Receiver] = []
         # Set to the exception of the first actor task that dies of one
@@ -126,10 +131,10 @@ class Mempool:
         self.tasks.append(task)
 
     async def spawn(self) -> "Mempool":
-        if self.parameters.workers > 0:
+        with_dataplane = self.parameters.workers > 0 and bool(self.committee.workers_of(self.name))
+        if with_dataplane and self.signature_service is None:
             raise ValueError(
-                "workers > 0 needs the mempool's data plane, which the port "
-                "does not have yet; use workers=0"
+                "the Conveyor data plane needs a signature service (availability acks are signed)"
             )
         self.failed = asyncio.get_running_loop().create_future()
         self.parameters.log()
@@ -207,11 +212,25 @@ class Mempool:
         )
         self._watch(Helper.spawn(self.committee, self.store, tx_helper))
 
+        # The data plane: worker shards with availability certificates.
+        if with_dataplane:
+            self.dataplane = await DataPlane(
+                self.name,
+                self.committee,
+                self.parameters,
+                self.store,
+                self.signature_service,
+                self.tx_consensus,
+                benchmark=self.benchmark,
+            ).spawn()
+
         log.info("Mempool successfully booted on %s", mp_address[0])
         return self
 
     async def shutdown(self) -> None:
         for t in self.tasks:
             t.cancel()
+        if self.dataplane is not None:
+            await self.dataplane.shutdown()
         for r in self.receivers:
             await r.shutdown()

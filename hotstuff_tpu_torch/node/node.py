@@ -4,13 +4,15 @@ the Mempool and Consensus wired by their channels, and consume the commit
 stream (``analyze_block`` is the application's attach point).
 
 Port of ``hotstuff_tpu/node/node.py``: ``Node.new``, ``analyze_block`` and
-``shutdown``. ``device`` (default ``"cuda"``) goes down to the mempool's
-processors, whose SHA-512 kernel it runs when ``device_batch_digests`` is
-on; the certificate path's device is the crypto backend's
-(``HOTSTUFF_CRYPTO_BACKEND``). Left out: the faultline scenario hook
-(reference ``:37-64``), telemetry and the sampling profiler
-(``:159-197``), the data plane's commit resolver (no data plane yet), and
-``crash``/``restart``, which belong to the faultline contract.
+``shutdown``. When the mempool runs the data plane (``workers > 0``),
+committed blocks pass through its ``CommitResolver`` before the commit
+stream (reference ``:121-136``). ``device`` (default ``"cuda"``) goes down
+to the mempool's processors, whose SHA-512 kernel it runs when
+``device_batch_digests`` is on; the certificate path's device is the
+crypto backend's (``HOTSTUFF_CRYPTO_BACKEND``). Left out: the faultline
+scenario hook (reference ``:37-64``), telemetry and the sampling profiler
+(``:159-197``), and ``crash``/``restart`` (with their copy of the resolver
+wiring, ``:283-295``), which belong to the faultline contract.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import logging
 from hotstuff_tpu_torch.consensus import Consensus
 from hotstuff_tpu_torch.crypto import SignatureService
 from hotstuff_tpu_torch.mempool import Mempool
+from hotstuff_tpu_torch.mempool.dataplane import CommitResolver
 from hotstuff_tpu_torch.store import Store
 
 from .config import Committee, Parameters, Secret
@@ -37,6 +40,8 @@ class Node:
         self.mempool: Mempool | None = None
         self.consensus: Consensus | None = None
         self.store: Store | None = None
+        self.resolver: CommitResolver | None = None  # the data plane's commit path
+        self.resolver_task: asyncio.Task | None = None
 
     @classmethod
     async def new(
@@ -70,8 +75,22 @@ class Node:
             tx_mempool_to_consensus,
             benchmark=benchmark,
             device=device,
+            signature_service=signature_service,
         )
         await self.mempool.spawn()
+
+        # The data plane's commit path: consensus ordered digests it could
+        # prove available, so committed blocks pass through the resolver
+        # (which fetches any batch this node never received) before the
+        # application sees them.
+        commit_sink = self.commit
+        if self.mempool.dataplane is not None:
+            commit_sink = asyncio.Queue(CHANNEL_CAPACITY)
+            self.resolver = CommitResolver(
+                self.store, commit_sink, self.commit, tx_consensus_to_mempool,
+                self.mempool.dataplane,
+            )
+            self.resolver_task = self.resolver.start()
 
         self.consensus = await Consensus.spawn(
             secret.name,
@@ -81,7 +100,7 @@ class Node:
             self.store,
             tx_mempool_to_consensus,
             tx_consensus_to_mempool,
-            self.commit,
+            commit_sink,
             benchmark=benchmark,
         )
         log.info("Node %s successfully booted", secret.name)
@@ -105,5 +124,7 @@ class Node:
             await self.consensus.shutdown()
         if self.mempool is not None:
             await self.mempool.shutdown()
+        if self.resolver_task is not None:
+            self.resolver_task.cancel()
         if self.store is not None:
             self.store.close()

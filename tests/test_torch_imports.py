@@ -64,6 +64,9 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "consensus.helper", "consensus.leader", "consensus.mempool_driver",
                  "consensus.proposer", "consensus.statesync", "consensus.synchronizer",
                  "consensus.timer", "mempool.synchronizer", "mempool.dataplane.messages",
+                 "mempool.dataplane", "mempool.dataplane.backpressure",
+                 "mempool.dataplane.certificate", "mempool.dataplane.worker",
+                 "mempool.dataplane.dataplane",
                  "network.budget", "network.receiver", "network.reliable_sender",
                  "network.simple_sender", "store", "utils.quorum", "utils.tasks",
                  "utils.logging", "ops.sha512", "mempool", "mempool.messages", "mempool.config",

@@ -16,8 +16,9 @@ whole mempool to the consensus digest channel), plus:
   with it, and emits no digest (the reference logs and hashes on the host);
 - a data-plane batch frame served raw to ``MempoolReceiverHandler`` is
   stored under its digest and reaches neither processor nor helper;
-- ``workers > 0`` is refused, and device digests without a card fail when
-  the processor spawns.
+- ``workers > 0`` with worker entries but no signature service is refused
+  before anything binds, and device digests without a card fail when the
+  processor spawns.
 
 Tolerance: byte-exact frames and digests. Ports 22000-22099.
 """
@@ -37,7 +38,7 @@ from hotstuff_tpu.crypto import Digest as JDigest
 from hotstuff_tpu.crypto import PublicKey as JPublicKey
 from hotstuff_tpu_torch.crypto import generate_keypair, sha512_digest
 from hotstuff_tpu_torch.mempool import Authority, Cleanup, Committee, Mempool, Parameters
-from hotstuff_tpu_torch.mempool import Synchronize
+from hotstuff_tpu_torch.mempool import Synchronize, WorkerEntry
 from hotstuff_tpu_torch.mempool import processor as t_processor
 from hotstuff_tpu_torch.mempool import synchronizer as sync_mod
 from hotstuff_tpu_torch.mempool.batch_maker import BatchMaker
@@ -461,7 +462,10 @@ async def test_receiver_stores_a_raw_data_plane_frame():
 
 @async_test
 async def test_workers_are_refused():
+    """Without a signature service the data plane cannot sign its acks."""
     committee = mempool_committee(BASE + 36)
+    for i, authority in enumerate(committee.authorities.values()):
+        authority.workers = [WorkerEntry(("127.0.0.1", BASE + 90 + i), ("127.0.0.1", BASE + 95 + i))]
     mempool = Mempool(keys()[0][0], committee, Parameters(workers=2), Store(),
                       asyncio.Queue(), asyncio.Queue())
     with pytest.raises(ValueError, match="data plane"):
