@@ -166,15 +166,73 @@ unguarded (any failure ends the run with a non-zero exit):
    certificates formed, acks invalid, batches the resolvers fetched, each
    kernel's launches, ``CudaBackend`` calls by width and the collector's
    pauses; then holds the cached path's kernels against their plain
-   versions at every (mf, mc) the window ran them at, as 10c does.
+   versions at every (mf, mc) the window ran them at, as 10c does;
+12. replica rejoin (state sync and log compaction):
+   a. the reference's real-plane rejoin scenario (``benchmark/scenarios/
+      rejoin.json``; ``hotstuff_tpu/faultline/harness.py:70-81``'s
+      defaults): four port engines (``Consensus.spawn``, mempool channels
+      sunk) on ``LogEngine`` stores, keys from ``--seed``, timeout 1 s,
+      batched vote verification, wire v2, ``retention_rounds`` 16,
+      ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched``, ports from 10500. Engine 1
+      crashes uncleanly 2 s after the first commit everywhere; at 8 s every
+      survivor must have written a snapshot record and compacted (its
+      rewrite drained, no block it committed below its floor reads back);
+      then the cert arena and the launch counts are reset and engine 1
+      restarts on a new, empty store. It fails unless the joiner installs a
+      verified snapshot whose frontier lies above what it had committed
+      (each install it makes does: a survivors' floor that passes it while
+      it catches up is installed again, as in the reference), commits 3
+      blocks within 30 s of the restart, every round committed on several
+      engines has one digest, each engine's commits of one life form a
+      chain above its floor, no verification met ``BackendUnavailable``,
+      and the snapshot's two QCs went to the card between the restart and
+      the end of the first install: every card call whose messages hold
+      the vote digest of either QC launched exactly a warm QC's kernels
+      (decompress 1, K2 2, K3 2, verdict 1, no K4), and each digest is in
+      one. The survivors verified those QCs rounds before the restart, so
+      these calls are the joiner's: in ``verify_snapshot``, or earlier in
+      its chain walk through the helpers' replies, which carry the same
+      QCs (``verify_snapshot`` then meets them in the core's certificate
+      cache). It prints the time to recover (restart to the joiner's first
+      and third commits), each install's frontier beside the survivors'
+      heads, each survivor's compactions, bytes freed, keys dropped and
+      ``store.log`` peak and final sizes, the probes sent, the snapshot's
+      calls, and the card's calls by width;
+   b. a warm restart at config 1 (phase 10c's configuration at
+      ``retention_rounds`` 16, ports from 10510): after the first payload
+      commit on every node, node 2 ``crash()``es and ``restart()``s 3 s
+      later on its own store; 8 s on, the clients stop. It fails unless
+      node 2 restores the floor of its own snapshot record when it has one,
+      commits a payload block again, one digest a round on every node, the
+      running nodes' payload sequences agree and node 2's is theirs in
+      their order, and every sample transaction sent to nodes 0, 1 and 3
+      up to 1 s before the end is committed, or its batch was proposed only
+      in a block that no node committed (a block proposed just before a
+      round whose leader is down gets no QC, and every proposer drops its
+      payload on processing it, as in the reference; such samples are
+      counted apart). It prints the time to recover and the rounds lost;
+   c. the snapshot check at phase 3's N = 1000: a record ``(F, c1, cert)``
+      of signed blocks whose QCs are 667-vote QCs of consecutive rounds,
+      decoded with ``decode_snapshot`` and verified with ``verify_snapshot``
+      (cert arena reset before each): 2 inner calls, launching decompress 2,
+      K2 4, K3 4, verdict 2 and nothing else; a flipped vote byte raises
+      ``InvalidSignature``; a cert of another block raises ``SnapshotError``
+      with no launch. It prints ms per snapshot verify beside two lone
+      ``QC.verify``s (CUDA events, in turns, median of 10 each); then the
+      cached kernels against their plain versions at every (mf, mc) that
+      parts a-c ran them at.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
-``launches`` from phase 3, so 0 for ``sha512``, which phase 3 does not
-run; ``launches_node_path`` from phase 8, the ``fused_*`` and ``widest_*``
+``launches`` from phase 3 (``sha512``'s too, counted there like the
+others'); ``launches_node_path`` from phase 8, the ``fused_*`` and ``widest_*``
 keys from 8d, ``launches_committee`` and the ``committee_*`` keys from
 phase 9, ``launches_config1`` and the ``config1_*`` keys from phase 10c:
 the QC kernels' at its widest width, ``sha512``'s at its widest drain;
-``launches_conveyor`` and the ``conveyor_*`` keys from phase 11) and
+``launches_conveyor`` and the ``conveyor_*`` keys from phase 11,
+``launches_rejoin`` from phase 12a's restart to the end of its first install
+(every engine's), ``launches_rejoin_snapshot`` from the card calls that
+verified the snapshot's two QCs in that window, and the ``rejoin_*`` keys at
+phase 12's widest width) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -225,6 +283,14 @@ from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, erro
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
 from hotstuff_tpu_torch.consensus.decode_arena import decode_shared  # noqa: E402
+from hotstuff_tpu_torch.consensus.statesync import (  # noqa: E402
+    SNAPSHOT_KEY,
+    SnapshotError,
+    decode_snapshot,
+    encode_snapshot,
+    peek_frontier,
+    verify_snapshot,
+)
 from hotstuff_tpu_torch.consensus.messages import (  # noqa: E402
     QC,
     TC,
@@ -253,7 +319,7 @@ from hotstuff_tpu_torch.ops import field as fe  # noqa: E402
 from hotstuff_tpu_torch.ops import msm_kernels as mk  # noqa: E402
 from hotstuff_tpu_torch.ops import sha512 as sha  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
-from hotstuff_tpu_torch.store import Store  # noqa: E402
+from hotstuff_tpu_torch.store import LogEngine, Store  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder  # noqa: E402
 from hotstuff_tpu_torch.utils.kernel_times import PROFILER_NAMES, kernel_ms  # noqa: E402
@@ -279,6 +345,8 @@ PATH_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "msm_partial
 PHASE8_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 WARM_QC_LAUNCHES = {"decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "msm_partials": 0,
                     "msm_combine": 2, "verdict": 1}
+# The same beside the digest kernel's count, which a verify leaves at 0.
+WARM_QC_ALL = {**WARM_QC_LAUNCHES, "sha512": 0}
 # Phase 7's ceiling per warm QC: aten ops the profiler sees, and device ops.
 MAX_ATEN_OPS, MAX_DEVICE_OPS = 400, 60
 
@@ -388,6 +456,20 @@ CONVEYOR_RATE, CONVEYOR_TX_BYTES = 20_000, 512
 # phase 10c's, since a batch here waits for more rounds (end-to-end p95
 # 0.7-1.6 s on the H100 hosts seen, against 0.06-0.2 s in config 1).
 CONVEYOR_DRAIN_S = 5.0
+# Phase 12: replica rejoin. a: the reference's real-plane scenario
+# (benchmark/scenarios/rejoin.json, as tests/test_statesync_sim.py:97-120
+# runs it; defaults of hotstuff_tpu/faultline/harness.py:70-81): 4 engines,
+# timeout 1 s, batched vote verification, retention 16; engine 1 crashes
+# uncleanly 2 s after the first commit everywhere and restarts wiped at
+# 8 s; it must commit 3 blocks within 30 s of the restart. b: config 1
+# (phase 10c) at retention 16, node 2 crashing after the first payload
+# commit everywhere and restarting 3 s later on its own store, then a
+# window of 8 s. c: the snapshot check at phase 3's N = 1000. Ports
+# 10500-10503 (a) and 10510-10539 (b, in phase 10c's layout).
+REJOIN_N, REJOIN_PORTS, REJOIN_RETENTION, REJOIN_VICTIM = 4, 10500, 16, 1
+REJOIN_CRASH_S, REJOIN_RESTART_S, REJOIN_RECOVERY_S, REJOIN_COMMITS = 2.0, 8.0, 30.0, 3
+WARM_PORTS, WARM_VICTIM, WARM_DOWN_S, WARM_WINDOW_S = 10510, 2, 3.0, 8.0
+PHASE12_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 
 
 class SmokeFailure(RuntimeError):
@@ -397,6 +479,16 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0: the QC kernels' and the digest's."""
+    mk.reset_launches()
+    sha.LAUNCHES["sha512"] = 0
+
+
+def launch_counts() -> dict:
+    return {**mk.LAUNCHES, **sha.LAUNCHES}
 
 
 def nvidia_smi(query: str) -> str:
@@ -476,7 +568,7 @@ def tampered(qc: QC) -> QC:
 
 def main_path(keys, committee, qcs):
     """Drive the port's entry points; returns (launch counts, timings)."""
-    mk.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     backend = CudaBackend()
     crypto.set_backend(backend)
@@ -501,7 +593,7 @@ def main_path(keys, committee, qcs):
     uncached_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(mk.LAUNCHES)
+    launches = launch_counts()
     crypto.set_backend(backend)
     check(backend.dispatches == len(qcs) + 1, f"backend dispatches {backend.dispatches}")
     return launches, backend, {"first_ms": first_ms, "uncached_ms": uncached_ms, "wall_s": wall}
@@ -911,7 +1003,7 @@ def node_path(keys, committee, qcs, seed: int):
           f"cuda-batched installed {batched!r}")
     cuda = batched.inner
     numbers = {}
-    mk.reset_launches()
+    reset_launches()
 
     # Committee keys at first sight: one decompression onto the card.
     check(cuda._cache.ensure([pk.data for pk in committee.sorted_keys()]),
@@ -1025,7 +1117,7 @@ def node_path(keys, committee, qcs, seed: int):
     sizes = [n for n, _ in gated.calls]
     check(errs == [None] * 9 and sizes == [quorum, quorum] and fusing.deduped_sigs == 7 * quorum,
           f"eight copies gave calls {sizes}, {fusing.deduped_sigs} deduped, errors {errs}")
-    phase_launches = dict(mk.LAUNCHES)
+    phase_launches = launch_counts()
 
     # e. Numbers. A lone QC through the wrapper against the direct backend
     # (the flusher's handoff), in turns; the fused flush against its four
@@ -1115,12 +1207,12 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
         out["first_round"] = first.round
 
         before = counters()
-        mk.reset_launches()
+        reset_launches()
         t = time.perf_counter()
         committed = [await next_round(COMMITTEE_ROUND_S, f"round {i + 1} of {rounds}")
                      for i in range(rounds)]
         out["ms_per_round"] = (time.perf_counter() - t) * 1e3 / rounds
-        out["launches"] = dict(mk.LAUNCHES)
+        out["launches"] = launch_counts()
         after = counters()
         out.update({key: after[key] - before[key] for key in after})
         out["rounds"] = [b.round for b in committed]
@@ -1432,9 +1524,12 @@ class NodeRun(logging.Handler):
     every thread that wants the interpreter, the nodes' one event loop
     among them)."""
 
-    def __init__(self, loggers, tmp: str) -> None:
+    def __init__(self, loggers, tmp: str, keep_batches: bool = False) -> None:
         super().__init__()
         self.tmp = tmp
+        # Committed batches as node i read them at commit (phase 12b: a
+        # compaction later drops those below its floor from the stores).
+        self.batches: dict | None = {} if keep_batches else None
         self.node_of: contextvars.ContextVar[int] = contextvars.ContextVar("node")
         self.records: list[tuple[int, logging.LogRecord]] = []
         self.pauses: list[tuple[int, float]] = []
@@ -1481,6 +1576,11 @@ class NodeRun(logging.Handler):
         while True:
             block = await self.nodes[i].commit.get()
             self.commits[i].append((time.time(), block))
+            if self.batches is not None:
+                for d in block.payload:
+                    data = await self.nodes[i].store.read(d.data)
+                    if data is not None:
+                        self.batches.setdefault(d, data)
 
     def payload_commits(self, i: int) -> list:
         return [(ts, b) for ts, b in self.commits[i] if b.payload]
@@ -1582,23 +1682,32 @@ class NodeRun(logging.Handler):
 
 
 class VerifyWidths:
-    """Wraps ``inner.verify_batch`` (the crypto bridge's workers call it
-    from their threads) to record the signatures of each call and the first
-    batch verified at each (mf, mc), for the kernels' checks against their
-    plain versions at the widths a window ran them at."""
+    """Wraps ``inner.verify_batch`` (the batching backend's flusher thread
+    calls it) to record the signatures of each call and the first batch
+    verified at each (mf, mc), for the kernels' checks against their plain
+    versions at the widths a window ran them at. While ``calls`` is a list,
+    each call also logs its start, its width, its distinct messages and the
+    launches it made: the flusher is the one thread that calls the inner
+    backend, so the counts' change across a call is that call's own."""
 
     def __init__(self, inner: CudaBackend) -> None:
         self.inner, self.real, self.lock = inner, inner.verify_batch, threading.Lock()
         self.widths, self.sig_counts = {}, {}
+        self.calls = None
         inner.verify_batch = self._recording
 
     def _recording(self, msgs, pubs, sigs):
+        t, before = time.monotonic(), launch_counts()
         self.real(msgs, pubs, sigs)  # raises on rejection
+        after = launch_counts()
         n = len(msgs)
         with self.lock:
             self.sig_counts[n] = self.sig_counts.get(n, 0) + 1
             self.widths.setdefault((ov._pad_to_pow2(n), ov._pad_to_pow2(n + 1)),
                                    (list(msgs), list(pubs), list(sigs)))
+            if self.calls is not None:
+                self.calls.append((t, n, set(map(bytes, msgs)),
+                                   {k: after[k] - before[k] for k in after}))
 
     def stop(self) -> tuple[dict, dict]:
         del self.inner.verify_batch
@@ -1703,8 +1812,7 @@ async def config1(seed: int, device) -> dict:
         run.watch_gc()
         timeouts0 = sum(n.consensus.core.timeouts_fired for n in nodes)
         mark = len(run.commits[0])
-        mk.reset_launches()
-        sha.LAUNCHES["sha512"] = 0
+        reset_launches()
         processor.reset_stats()
         recorder = VerifyWidths(backend.inner)
         t0 = time.time()
@@ -1712,7 +1820,7 @@ async def config1(seed: int, device) -> dict:
         t1 = time.time()
         out.update(run.unwatch_gc())
         out["widths"], out["sig_counts"] = recorder.stop()
-        out["launches"] = {**mk.LAUNCHES, **sha.LAUNCHES}
+        out["launches"] = launch_counts()
         out["inner"] = backend.inner
         out["stats"] = dict(processor.STATS)
         out["drain_sizes"] = dict(sorted(processor.DRAIN_SIZES.items()))
@@ -1896,15 +2004,14 @@ async def conveyor(seed: int, device) -> dict:
         timeouts0 = sum(node.consensus.core.timeouts_fired for node in nodes)
         mark = len(run.commits[0])
         before = counts()
-        mk.reset_launches()
-        sha.LAUNCHES["sha512"] = 0
+        reset_launches()
         recorder = VerifyWidths(backend.inner)
         t0 = time.time()
         await asyncio.sleep(NODE_WINDOW_S)
         t1 = time.time()
         out.update(run.unwatch_gc())
         out["widths"], out["sig_counts"] = recorder.stop()
-        out["launches"] = {**mk.LAUNCHES, **sha.LAUNCHES}
+        out["launches"] = launch_counts()
         after = counts()
         out["inner"] = backend.inner
         out["counts"] = {k: after[k] - before[k] for k in after}
@@ -2016,6 +2123,587 @@ def conveyor_phase(seed: int, card: str, device, imad_per_s: float):
     check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
           f"the data plane's path launched K4 or the root alone: {launches}")
     return launches, width_checks(run["widths"], run["inner"], device, imad_per_s, "conveyor")
+
+
+# -- phase 12: replica rejoin --------------------------------------------------
+
+
+class Engine:
+    """One seat of phase 12a: its keys, its store directory (a new one for
+    each life after a wipe), its live ``Consensus``, the Core of each life,
+    every block it committed, and each snapshot it installed."""
+
+    def __init__(self, index: int, keypair, tmp: str) -> None:
+        self.index, (self.pk, self.sk), self.tmp = index, keypair, tmp
+        self.life = 0
+        self.store = self._open()
+        self.consensus = self.crashed = None
+        self.cores, self.tasks = [], []
+        self.commits = []  # (life, monotonic time, block)
+        # (monotonic time, record, its committed round before, the others')
+        self.installs = []
+        self.responses = []  # monotonic times of state responses with a record
+        self.at_install = None  # called after each install
+
+    def _open(self) -> Store:
+        return Store(engine=LogEngine(f"{self.tmp}/engine_{self.index}_{self.life}"))
+
+    def log_size(self) -> int:
+        return self.store._engine.size_bytes()
+
+    async def spawn(self, committee, params, others) -> None:
+        rx_mempool, tx_mempool, tx_commit = asyncio.Queue(), asyncio.Queue(), asyncio.Queue()
+
+        async def drain():
+            while True:
+                await tx_mempool.get()
+
+        async def collect(life=self.life):
+            while True:
+                block = await tx_commit.get()
+                self.commits.append((life, time.monotonic(), block))
+
+        self.consensus = await Consensus.spawn(self.pk, committee, params,
+                                               crypto.SignatureService(self.sk), self.store,
+                                               rx_mempool, tx_mempool, tx_commit)
+        core = self.consensus.core
+        self.cores.append(core)
+        self.tasks = [asyncio.create_task(drain()), asyncio.create_task(collect())]
+        install = core._statesync._install
+
+        async def recorded(snap, raw):
+            had = core.last_committed_round
+            heads = [o.cores[-1].last_committed_round for o in others() if o is not self]
+            await install(snap, raw)
+            self.installs.append((time.monotonic(), raw, had, heads))
+            if self.at_install is not None:
+                self.at_install()
+
+        sync = core._statesync
+        respond = sync.handle_state_response
+
+        async def responded(payload):
+            if payload[2] is not None:
+                self.responses.append(time.monotonic())
+            await respond(payload)
+
+        core._statesync._install = recorded
+        sync.handle_state_response = responded
+
+    def crash(self) -> None:
+        """Unclean, as a process crash (``Consensus.crash``); the store stays
+        open."""
+        self.consensus.crash()
+        for t in self.tasks:
+            t.cancel()
+        self.crashed, self.consensus = self.consensus, None
+
+    async def restart_wiped(self, committee, params, others) -> None:
+        """Back on a new, empty store: the disk was lost."""
+        await self.crashed.compactor.drain()
+        self.store.close()
+        self.life += 1
+        self.store = self._open()
+        await self.spawn(committee, params, others)
+
+    def blocks(self, life=None) -> list:
+        return [b for l, _, b in self.commits if life is None or l == life]
+
+    async def shutdown(self) -> None:
+        if self.consensus is not None:
+            await self.consensus.shutdown()
+        for t in self.tasks:
+            t.cancel()
+        self.store.close()
+
+
+def snapshot_calls(victim: Engine, calls: list, t_restart: float) -> dict:
+    """The card calls from the restart to the end of the first install
+    whose messages hold the vote digest of either of its snapshot's QCs.
+    Fails unless each digest is in one, and each such call launched a warm
+    QC's kernels and nothing else. Returns their widths, their launches
+    summed, and how many began before the first state response that
+    carried a record (the chain walk) and how many after it."""
+    snap = decode_snapshot(victim.installs[0][1])
+    digests = {snap.child.qc.digest().data, snap.cert.digest().data}
+    mine = [(t, n, msgs & digests, launches) for t, n, msgs, launches in calls
+            if msgs & digests]
+    seen = set().union(*(d for _, _, d, _ in mine))
+    check(seen == digests, f"{len(digests - seen)} of the snapshot's two QCs never went to the "
+          f"card between the restart and the install ({len(calls)} calls in that window)")
+    for _, n, _, launches in mine:
+        check(launches == WARM_QC_ALL,
+              f"a card call of {n} signatures that verified a snapshot QC launched {launches}")
+    response = victim.responses[0] if victim.responses else float("inf")
+    return {
+        "widths": [n for _, n, _, _ in mine],
+        "launches": {k: sum(c[3][k] for c in mine) for k in launch_counts()},
+        "walk": sum(t < response for t, _, _, _ in mine),
+        "verify": sum(t >= response for t, _, _, _ in mine),
+        "response_s": response - t_restart,
+        "window": len(calls),
+    }
+
+
+def commits_agree(engines) -> None:
+    """Every round committed on several engines has one digest there, and an
+    engine's commits of one life form a chain: a block's parent is the block
+    committed before it, or the frontier of a snapshot it installed above
+    that block (no gap above its floor)."""
+    by_round = {}
+    for e in engines:
+        for _, _, b in e.commits:
+            by_round.setdefault(b.round, set()).add(b.digest())
+        floors = dict(peek_frontier(raw)[::-1] for _, raw, _, _ in e.installs)
+        for (l0, _, prev), (l1, _, b) in zip(e.commits, e.commits[1:]):
+            if l0 == l1 and b.parent() != prev.digest():
+                check(floors.get(b.parent(), -1) >= prev.round,
+                      f"engine {e.index}: a gap in its commits at round {b.round}")
+    split = [r for r, digests in by_round.items() if len(digests) > 1]
+    check(not split, f"the engines committed different blocks at rounds {split}")
+
+
+async def rejoin(seed: int, device) -> dict:
+    """Phase 12a (see the docstring): the cold rejoin of a wiped engine."""
+    rng = random.Random(seed * 7919 + 31)
+    keys = [crypto.generate_keypair(seed=rng.randbytes(32))[:2] for _ in range(REJOIN_N)]
+    committee = Committee({pk: Authority(1, ("127.0.0.1", REJOIN_PORTS + i))
+                           for i, (pk, _) in enumerate(keys)})
+    params = Parameters(timeout_delay=NODE_TIMEOUT_MS, batch_vote_verification=True,
+                        retention_rounds=REJOIN_RETENTION)
+    os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
+    crypto._BACKEND = None
+    cert_arena.reset()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rejoin_")
+    engines = [Engine(i, keys[i], tmp) for i in range(REJOIN_N)]
+    victim = engines[REJOIN_VICTIM]
+    survivors = [e for e in engines if e is not victim]
+    out, recorder = {}, None
+    try:
+        index = {pk: i for i, (pk, _) in enumerate(keys)}
+        t = time.monotonic()
+        for pk in reversed(committee.sorted_keys()):  # descending leader order, as phase 9
+            await engines[index[pk]].spawn(committee, params, lambda: engines)
+        backend = crypto.get_backend()
+        check(isinstance(backend, BatchingBackend) and isinstance(backend.inner, CudaBackend),
+              f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched installed {backend!r}")
+        recorder = VerifyWidths(backend.inner)
+        while not all(e.commits for e in engines):
+            check(time.monotonic() - t < NODE_BOOT_S, "no first commit on every engine")
+            await asyncio.sleep(0.05)
+        t0 = time.monotonic()
+        out["boot_s"] = t0 - t
+        sizes = {e.index: [e.log_size()] for e in survivors}
+
+        async def until(deadline: float) -> None:
+            while time.monotonic() < deadline:
+                for e in survivors:
+                    sizes[e.index].append(e.log_size())
+                await asyncio.sleep(0.05)
+
+        await until(t0 + REJOIN_CRASH_S)
+        victim.crash()
+        out["victim_round"] = max(b.round for b in victim.blocks())
+        await until(t0 + REJOIN_RESTART_S)
+
+        # Every survivor has written a snapshot record and compacted: once
+        # its rewrite in flight ends, no block it committed below its floor
+        # reads back.
+        out["floors"], out["heads"] = {}, {}
+        for e in survivors:
+            await e.consensus.compactor.drain()
+            record = await e.store.read_meta(SNAPSHOT_KEY)
+            check(record is not None, f"engine {e.index} wrote no snapshot record in "
+                  f"{REJOIN_RESTART_S:.0f} s")
+            floor = peek_frontier(record)[0]
+            out["floors"][e.index], out["heads"][e.index] = floor, e.cores[-1].last_committed_round
+            comp = e.consensus.compactor
+            check(comp.compactions >= 1 and comp.bytes_freed > 0,
+                  f"engine {e.index} never compacted its store.log")
+            for b in e.blocks():
+                check(b.round >= floor or await e.store.read(b.digest().data) is None,
+                      f"engine {e.index}: round {b.round} below its floor {floor} reads back")
+
+        # The restart, wiped, with the launch counts zeroed and the card's
+        # calls logged from just before it to the end of the first install:
+        # every engine's launches, and the calls that verified the
+        # snapshot's two QCs.
+        cert_arena.reset()
+        reset_launches()
+        calls0 = dict(recorder.sig_counts)
+        with recorder.lock:
+            recorder.calls = []
+
+        def install_window() -> None:
+            if "install_launches" not in out:
+                out["install_launches"] = launch_counts()
+                with recorder.lock:
+                    out["install_calls"] = {n: c - calls0.get(n, 0)
+                                            for n, c in recorder.sig_counts.items()
+                                            if c > calls0.get(n, 0)}
+                    out["window_calls"], recorder.calls = recorder.calls, None
+
+        victim.at_install = install_window
+        t_restart = time.monotonic()
+        await victim.restart_wiped(committee, params, lambda: engines)
+        while len(victim.blocks(1)) < REJOIN_COMMITS:
+            check(time.monotonic() - t_restart < REJOIN_RECOVERY_S,
+                  f"the wiped engine committed {len(victim.blocks(1))} blocks in "
+                  f"{REJOIN_RECOVERY_S:.0f} s after its restart (installs: {len(victim.installs)})")
+            await asyncio.sleep(0.01)
+        check(victim.installs, "the wiped engine committed without installing a snapshot")
+        out["snapshot_calls"] = snapshot_calls(victim, out["window_calls"], t_restart)
+        commit_times = [ts for life, ts, _ in victim.commits if life == 1]
+        out["first_commit_s"] = commit_times[0] - t_restart
+        out["third_commit_s"] = commit_times[REJOIN_COMMITS - 1] - t_restart
+        out["installs"] = [(ts - t_restart, peek_frontier(raw)[0], had, heads)
+                           for ts, raw, had, heads in victim.installs]
+        check(all(fr > had for _, fr, had, _ in out["installs"]),
+              f"a snapshot installed at or below what the engine had committed: {out['installs']}")
+        commits_agree(engines)
+        for e in engines:
+            for core in e.cores:
+                check(core.backend_failures == 0,
+                      f"engine {e.index}: {core.backend_failures} verifications met "
+                      f"BackendUnavailable")
+        for e in survivors:
+            comp = e.consensus.compactor
+            sizes[e.index].append(e.log_size())
+            out.setdefault("compaction", {})[e.index] = dict(
+                compactions=comp.compactions, bytes_freed=comp.bytes_freed,
+                keys_dropped=comp.keys_dropped, snapshot_round=comp.snapshot_round,
+                log_peak=max(sizes[e.index]), log_now=sizes[e.index][-1])
+        out["probes"] = {e.index: sum(c._statesync.probes_sent for c in e.cores) for e in engines}
+        out["joiner_installed"] = victim.cores[-1]._statesync.snapshots_installed
+    finally:
+        if recorder is not None:
+            out["widths"], out["sig_counts"] = recorder.stop()
+            out["inner"] = recorder.inner
+        for e in engines:
+            await e.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
+    return out
+
+
+async def warm_restart(seed: int, device) -> dict:
+    """Phase 12b (see the docstring): node 2 of config 1 crashes and
+    restarts on its own store."""
+    from hotstuff_tpu_torch.node import Committee as NodeCommittee
+    from hotstuff_tpu_torch.node import Parameters as NodeParameters
+    from hotstuff_tpu_torch.node import Secret
+    from hotstuff_tpu_torch.node.client import run_client
+
+    rng = random.Random(seed * 7919 + 37)
+    secrets = [Secret(*crypto.generate_keypair(seed=rng.randbytes(32))) for _ in range(NODE_N)]
+    base = WARM_PORTS
+    consensus = Committee({s.name: Authority(1, ("127.0.0.1", base + i))
+                           for i, s in enumerate(secrets)})
+    mempool = MempoolCommittee({s.name: MempoolAuthority(
+        1, ("127.0.0.1", base + 10 + i), ("127.0.0.1", base + 20 + i))
+        for i, s in enumerate(secrets)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_warm_")
+    NodeCommittee(consensus, mempool).write(f"{tmp}/committee.json")
+    NodeParameters(
+        Parameters(timeout_delay=NODE_TIMEOUT_MS, retention_rounds=REJOIN_RETENTION),
+        MempoolParameters(batch_size=NODE_BATCH_BYTES, max_batch_delay=NODE_BATCH_DELAY_MS,
+                          device_batch_digests=True),
+    ).write(f"{tmp}/parameters.json")
+    os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
+    crypto._BACKEND = None
+    cert_arena.reset()
+
+    run = NodeRun(("client", "mempool", "consensus"), tmp, keep_batches=True)
+    clients, recorder, out = [], None, {}
+    try:
+        out["boot_s"] = await run.boot(secrets, device)
+        nodes = run.nodes
+        recorder = VerifyWidths(crypto.get_backend().inner)
+        addresses = [("127.0.0.1", base + 10 + i) for i in range(NODE_N)]
+        clients = [run.spawn(i, run_client(
+            addresses[i], NODE_TX_BYTES, NODE_RATE // NODE_N, NODE_TIMEOUT_MS, addresses,
+            duration=600)) for i in range(NODE_N)]
+
+        def alive():
+            for n in nodes:
+                check(n.crashed or not n.mempool.failed.done(), "a mempool actor died")
+
+        await run.first_payload_commit(NODE_BOOT_S, alive)
+        victim = nodes[WARM_VICTIM]
+        out["victim_round"] = victim.consensus.core.last_committed_round
+        t_crash = time.time()
+        await victim.crash()
+        await asyncio.sleep(WARM_DOWN_S)
+        record = await victim.store.read_meta(SNAPSHOT_KEY)
+        out["heads"] = [n.consensus.core.last_committed_round for n in nodes if not n.crashed]
+        t_restart = time.time()
+        await victim.restart()
+        await asyncio.sleep(0.1)  # the Core's run preamble: its state and its floor
+        core = victim.consensus.core
+        out["floor"] = peek_frontier(record)[0] if record is not None else None
+        out["restored"] = (core.round, core.last_voted_round, core.last_committed_round,
+                           core.synchronizer._floor_round)
+        if record is not None:
+            check(core.synchronizer._floor_round >= out["floor"],
+                  f"node {WARM_VICTIM} restarted without the floor of its own record")
+        await asyncio.sleep(WARM_WINDOW_S)
+        t1 = time.time()
+        alive()
+        for task in clients:
+            task.cancel()
+        await asyncio.sleep(NODE_DRAIN_S)
+        alive()
+        out["timeouts"] = sum(n.consensus.core.timeouts_fired for n in nodes)
+        out["backend_failures"] = sum(n.consensus.core.backend_failures for n in nodes)
+
+        # Agreement: one digest a round everywhere; the survivors' payload
+        # sequences equal (the last two may be on their way); node 2's, over
+        # both its lives, in the same order.
+        by_round = {}
+        for i in range(NODE_N):
+            for _, b in run.commits[i]:
+                by_round.setdefault(b.round, set()).add(b.digest())
+        check(all(len(d) == 1 for d in by_round.values()), "the nodes committed different blocks")
+        seqs = {i: [b.digest() for _, b in run.payload_commits(i)] for i in range(NODE_N)}
+        others = [i for i in range(NODE_N) if i != WARM_VICTIM]
+        short = min(len(seqs[i]) for i in others)
+        check(all(seqs[i][:short] == seqs[others[0]][:short] for i in others),
+              "the running nodes committed different sequences of payload blocks")
+        order = {d: k for k, d in enumerate(seqs[max(others, key=lambda i: len(seqs[i]))])}
+        mine = [order.get(d, -1) for d in seqs[WARM_VICTIM]]
+        check(-1 not in mine[:-2] and mine == sorted(mine),
+              f"node {WARM_VICTIM}'s payload blocks are not the others' in their order")
+        after = [(ts, b) for ts, b in run.commits[WARM_VICTIM] if ts >= t_restart]
+        check(after, f"node {WARM_VICTIM} committed nothing after its restart")
+        out["first_commit_s"] = after[0][0] - t_restart
+        payload_after = [ts for ts, b in after if b.payload]
+        out["first_payload_s"] = payload_after[0] - t_restart if payload_after else None
+        check(payload_after, f"node {WARM_VICTIM} committed no payload block after its restart")
+        out["down_s"] = t_restart - t_crash
+        out["rounds_lost"] = max(out["heads"]) - out["victim_round"]
+
+        # Samples sent to the nodes that stayed up, as LogParser pairs them.
+        # A block proposed just before a round whose leader is down gets no
+        # QC, and every proposer drops the block's payload from its buffer
+        # when it processes the block (as in the reference): a sample whose
+        # batch was only ever proposed in such a block is lost, and is
+        # counted apart. Any other missing sample fails the phase.
+        first = {}
+        for i in range(NODE_N):
+            for ts, b in run.payload_commits(i):
+                for d in b.payload:
+                    first[d] = min(ts, first.get(d, ts))
+        committed_blocks = {b.digest() for i in range(NODE_N) for _, b in run.commits[i]}
+        sent, batch_of, proposed = {}, {}, {}
+        for i, r in run.records:
+            if r.msg == "Sending sample transaction %d" and i != WARM_VICTIM:
+                sent[(i, r.args[0])] = r.created
+            elif r.msg == "Batch %s contains sample tx %d":
+                batch_of[(i, r.args[1])] = r.args[0]
+            elif r.msg == "Created %s -> %s":
+                proposed.setdefault(r.args[1], []).append(r.args[0])
+        expected = [k for k, ts in sent.items() if ts <= t1 - NODE_SAMPLE_SLACK_S]
+        check(expected, "no sample transaction was sent")
+        missing = [k for k in expected if batch_of.get(k) not in first]
+        abandoned = [k for k in missing if batch_of.get(k) in proposed and not any(
+            blk.digest() in committed_blocks for blk in proposed[batch_of[k]])]
+        for k in expected:
+            d = batch_of.get(k)
+            if d in first:
+                sample = b"\x00" + k[1].to_bytes(8, "big")
+                txs = decode_batch(run.batches[d])[1]
+                check(any(tx[:9] == sample for tx in txs),
+                      f"batch {d!r} lacks the sample transaction {k[1]} it was logged with")
+        out.update(expected=len(expected), missing=len(missing), abandoned=len(abandoned))
+        check(len(missing) == len(abandoned),
+              f"{len(missing) - len(abandoned)} of {len(expected)} sample transactions sent to "
+              f"the nodes that stayed up never committed, not explained by an abandoned block")
+        latency = sorted(first[batch_of[k]] - sent[k] for k in expected if k not in missing)
+        out["p50_ms"] = 1e3 * float(np.percentile(latency, 50))
+        out["p95_ms"] = 1e3 * float(np.percentile(latency, 95))
+        out["window_s"] = t1 - t_crash
+    finally:
+        for task in clients:
+            task.cancel()
+        if recorder is not None:
+            out["widths"], out["sig_counts"] = recorder.stop()
+        await run.stop()
+        del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
+    return out
+
+
+def snapshot_check(keys, committee, seed: int) -> dict:
+    """Phase 12c (see the docstring): a snapshot record at N = 1000."""
+    from torch.cuda import Event
+
+    reps = 5  # each of the two, twice in turns
+    secret = dict(keys)
+    leaders = committee.sorted_keys()
+    rng = random.Random(seed * 7919 + 41)
+
+    def block(qc: QC, round_: int) -> Block:
+        author = leaders[round_ % len(leaders)]
+        return Block.new_from_key(qc, None, author, round_, [], secret[author])
+
+    def qc_over(b: Block) -> QC:
+        agg, order = Aggregator(committee), list(keys)
+        rng.shuffle(order)
+        for pk, sk in order:
+            qc = agg.add_vote(Vote.new_from_key(b.digest(), b.round, pk, sk))
+            if qc is not None:
+                return qc
+        raise SmokeFailure("no QC formed")
+
+    t = time.perf_counter()
+    parent = block(QC.genesis(), 1)
+    frontier = block(qc_over(parent), 2)
+    child = block(qc_over(frontier), 3)
+    cert = qc_over(child)
+    sign_s = time.perf_counter() - t
+    raw = encode_snapshot(frontier, child, cert)
+    snap = decode_snapshot(raw)
+    crypto.set_backend("cuda-batched")
+    batched = crypto.get_backend()
+    check(batched.inner._cache.ensure([pk.data for pk in leaders]),
+          "a committee key failed to decompress")
+    recorder = VerifyWidths(batched.inner)
+    out = {"record_bytes": len(raw), "sign_s": sign_s, "sigs": len(cert.votes)}
+    try:
+        cert_arena.reset()
+        reset_launches()
+        calls = batched.inner_calls
+        asyncio.run(verify_snapshot(snap, committee))  # raises on rejection
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+        out["inner_calls"] = batched.inner_calls - calls
+        check(out["inner_calls"] == 2, f"a snapshot verify made {out['inner_calls']} inner calls")
+        expect_two = {name: 2 * n for name, n in WARM_QC_ALL.items()}
+        check(out["launches"] == expect_two,
+              f"a snapshot verify launched {out['launches']}, expected {expect_two}")
+
+        votes = list(cert.votes)
+        pk, sig = votes[len(votes) // 2]
+        data = bytearray(sig.data)
+        data[5] ^= 0x01
+        votes[len(votes) // 2] = (pk, crypto.Signature(bytes(data)))
+        forged = decode_snapshot(encode_snapshot(frontier, child, QC(cert.hash, cert.round, votes)))
+        cert_arena.reset()
+        try:
+            asyncio.run(verify_snapshot(forged, committee))
+            raise SmokeFailure("a snapshot with a flipped vote byte verified")
+        except errors.InvalidSignature:
+            pass
+        reset_launches()
+        try:
+            decode_snapshot(encode_snapshot(frontier, child, QC(frontier.digest(), child.round,
+                                                                cert.votes)))
+            raise SmokeFailure("a snapshot whose cert certifies another block decoded")
+        except SnapshotError:
+            pass
+        check(sum(launch_counts().values()) == 0, "a structurally bad snapshot launched a kernel")
+
+        async def timed(fn) -> list[float]:
+            times = []
+            for _ in range(reps):
+                cert_arena.reset()
+                start, end = Event(enable_timing=True), Event(enable_timing=True)
+                start.record()
+                await fn()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            return times
+
+        async def two_lone() -> None:
+            child.qc.verify(committee)
+            cert.verify(committee)
+
+        async def both() -> tuple[list[float], list[float]]:
+            snap_ms, lone_ms = [], []
+            for _ in range(2):  # in turns
+                snap_ms += await timed(lambda: verify_snapshot(snap, committee))
+                lone_ms += await timed(two_lone)
+            return snap_ms, lone_ms
+
+        snap_ms, lone_ms = asyncio.run(both())
+        out["snapshot_ms"], out["lone_ms"] = float(np.median(snap_ms)), float(np.median(lone_ms))
+    finally:
+        out["widths"], out["sig_counts"] = recorder.stop()
+        out["inner"] = batched.inner
+    return out
+
+
+def rejoin_phase(seed: int, card: str, device, imad_per_s: float, keys, committee):
+    """Phase 12. Returns (every engine's launches from the wiped engine's
+    restart to the end of its first install, the launches of the card calls
+    that verified its snapshot's QCs then, the QC kernels' rows at the
+    widest width)."""
+    frozen = freeze_heap()  # what phase 11 left alive, as before it
+    t = time.perf_counter()
+    a = asyncio.run(rejoin(seed, device))
+    a_s = time.perf_counter() - t
+    launches, snapshot = a["install_launches"], a["snapshot_calls"]
+    for name in PHASE12_KERNELS:
+        check(snapshot["launches"][name] > 0,
+              f"kernel {name} never launched for the snapshot's QCs")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"the rejoin launched K4 or the root alone: {launches}")
+    print(f"rejoin on {card}: {REJOIN_N} port engines (LogEngine stores, keys from --seed), "
+          f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched, timeout {NODE_TIMEOUT_MS} ms, retention "
+          f"{REJOIN_RETENTION} rounds; first commit everywhere after {a['boot_s']:.2f} s; engine "
+          f"{REJOIN_VICTIM} crashed at {REJOIN_CRASH_S:.0f} s (committed round "
+          f"{a['victim_round']}) and restarted wiped at {REJOIN_RESTART_S:.0f} s, the survivors' "
+          f"floors {a['floors']} at heads {a['heads']}; phase {a_s:.1f} s; before it {frozen}")
+    print(f"rejoin on {card}: time to recover, restart to the joiner's first commit "
+          f"{a['first_commit_s'] * 1e3:.1f} ms, to its third {a['third_commit_s'] * 1e3:.1f} ms; "
+          f"snapshots installed {len(a['installs'])} (its counter {a['joiner_installed']}): "
+          + "; ".join(f"at {ts * 1e3:.1f} ms frontier r{fr} above its r{had} (the others at "
+                      f"r{heads})" for ts, fr, had, heads in a["installs"])
+          + f"; probes sent {a['probes']}")
+    for i, c in sorted(a["compaction"].items()):
+        print(f"rejoin on {card}: survivor {i}: {c['compactions']} compactions, {c['bytes_freed']} B "
+              f"freed, {c['keys_dropped']} keys dropped, floor r{c['snapshot_round']}, store.log "
+              f"peak {c['log_peak']} B, now {c['log_now']} B")
+    print(f"rejoin on {card}: from the restart to the end of the first install, every engine's: "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()))
+          + f"; CudaBackend calls by signatures {a['install_calls']}; whole phase "
+          f"{a['sig_counts']}")
+    print(f"rejoin on {card}: the snapshot's two QCs went to the card in {len(snapshot['widths'])} "
+          f"of those {snapshot['window']} calls, of {snapshot['widths']} signatures, "
+          f"{snapshot['walk']} in the joiner's chain walk before the first state response with a "
+          f"record ({snapshot['response_s'] * 1e3:.1f} ms after the restart) and "
+          f"{snapshot['verify']} in verify_snapshot; their launches "
+          + ", ".join(f"{k} {v}" for k, v in sorted(snapshot["launches"].items())))
+
+    frozen = freeze_heap()
+    t = time.perf_counter()
+    b = asyncio.run(warm_restart(seed, device))
+    print(f"warm restart on {card}: config 1 ({NODE_N} port nodes, LogEngine stores, device "
+          f"digests, {NODE_N} clients at {NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B) at "
+          f"retention {REJOIN_RETENTION}: node {WARM_VICTIM} crashed at round {b['victim_round']}, "
+          f"down {b['down_s']:.2f} s while the others reached {b['heads']} ({b['rounds_lost']} "
+          f"rounds lost); restarted on its own store with (round, last vote, last committed, "
+          f"floor) {b['restored']} (its record's floor {b['floor']}); time to recover, restart "
+          f"to its first commit {b['first_commit_s'] * 1e3:.1f} ms, to its first payload commit "
+          f"{b['first_payload_s'] * 1e3:.1f} ms; phase {time.perf_counter() - t:.1f} s; before "
+          f"it {frozen}")
+    print(f"warm restart on {card}: sample transactions sent to the nodes that stayed up "
+          f"{b['expected']}, not committed {b['missing']} (each in a block abandoned by a view "
+          f"change: {b['abandoned']}); send-to-commit p50 {b['p50_ms']:.1f} ms, p95 "
+          f"{b['p95_ms']:.1f} ms; {b['timeouts']} timeouts; CudaBackend calls by signatures "
+          f"{b['sig_counts']}")
+    check(b["backend_failures"] == 0, "a verification met BackendUnavailable")
+
+    c = snapshot_check(keys, committee, seed)
+    print(f"snapshot check on {card}: N={len(keys)}, a record of {c['record_bytes']} B (two QCs "
+          f"of {c['sigs']} votes, signed in {c['sign_s']:.2f} s) verified in {c['inner_calls']} "
+          f"inner calls, launches {c['launches']}; a flipped vote byte raised InvalidSignature, a "
+          f"cert of another block SnapshotError with no launch; ms per snapshot verify (CUDA "
+          f"events, median of 10) {c['snapshot_ms']:.2f}, two lone QC.verify "
+          f"{c['lone_ms']:.2f}")
+    widths = {**a["widths"], **b["widths"], **c["widths"]}
+    return launches, snapshot["launches"], width_checks(widths, c["inner"], device, imad_per_s,
+                                                        "rejoin")
 
 
 def main() -> int:
@@ -2174,6 +2862,11 @@ def main() -> int:
     # 11. the data plane: four nodes with two workers each at 20,000 tx/s
     conveyor_launches, conveyor_rows = conveyor_phase(args.seed, card, device, imad_per_s)
 
+    # 12. replica rejoin: a wiped engine past its peers' floor, a node's warm
+    # restart, and the snapshot check at N = 1000
+    rejoin_launches, snapshot_launches, rejoin_rows = rejoin_phase(
+        args.seed, card, device, imad_per_s, keys, committee)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict"):
@@ -2188,13 +2881,16 @@ def main() -> int:
             "launches_committee": committee_launches[name],
             "launches_config1": config1_launches[name],
             "launches_conveyor": conveyor_launches[name],
+            "launches_rejoin": rejoin_launches[name],
+            "launches_rejoin_snapshot": snapshot_launches[name],
         }
         for prefix, extra in (("fused", fused_rows), ("widest", wide_rows),
                               ("committee", committee_rows), ("config1", config1_rows),
-                              ("conveyor", conveyor_rows)):
+                              ("conveyor", conveyor_rows), ("rejoin", rejoin_rows)):
             row_x = extra.get(name)
             if row_x is not None:
-                width = prefix if prefix in ("committee", "config1", "conveyor") else f"{prefix} flush"
+                width = (prefix if prefix in ("committee", "config1", "conveyor", "rejoin")
+                         else f"{prefix} flush")
                 entry["shape"] += f"; {width} {row_x['shape']}"
                 entry.update({f"{prefix}_{key}": row_x[key]
                               for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
@@ -2202,10 +2898,13 @@ def main() -> int:
     source, replaces = SOURCES["sha512"]
     kernels.append({
         "name": "sha512", "route": "cuda", "source": source, "replaces": replaces,
-        "launches": 0, "library_ms": None, **sha_row,
-        "launches_node_path": 0, "launches_committee": 0,
+        "launches": launches["sha512"], "library_ms": None, **sha_row,
+        "launches_node_path": node_launches["sha512"],
+        "launches_committee": committee_launches["sha512"],
         "launches_config1": config1_launches["sha512"],
         "launches_conveyor": conveyor_launches["sha512"],
+        "launches_rejoin": rejoin_launches["sha512"],
+        "launches_rejoin_snapshot": snapshot_launches["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,8 @@
 """Consensus layer of the port: the 2-chain HotStuff engine of
 ``hotstuff_tpu/consensus`` (core, proposer, synchronizer, helper, leader
 election, the crypto bridge and the ``Consensus`` root), its committee and
-messages with their wire codec, aggregation, the certificate caches and
-the shared decode arena. State sync and the compactor stay in the
-reference for now."""
+messages with their wire codec, aggregation, the certificate caches, the
+shared decode arena, and state sync with log compaction."""
 
 from .aggregator import Aggregator, QCMaker, TCMaker
 from .config import Authority, Committee, Parameters

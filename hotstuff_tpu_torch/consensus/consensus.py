@@ -3,11 +3,10 @@
 
 Port copy of ``hotstuff_tpu/consensus/consensus.py``. Routing:
 ``SyncRequest`` -> Helper; ``Propose`` is ACKed then sent to the Core;
-``Vote``/``Timeout``/``TC`` go straight to the Core. Left out: state sync
-and the compactor (the Core runs with ``statesync=None`` and
-``compactor=None``, so ``retention_rounds > 0`` is refused), the native
-transport's vote pre-stage, and the profiler and per-stage telemetry
-hooks.
+``Vote``/``Timeout``/``TC`` and the state-sync frames go straight to the
+Core. Every engine runs a ``StateSync``, and a ``Compactor`` when
+``retention_rounds > 0``. Left out: the native transport's vote pre-stage,
+and the profiler and per-stage telemetry hooks.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from .leader import make_elector
 from .mempool_driver import MempoolDriver
 from .messages import SeatTable
 from .proposer import Proposer
+from .statesync import Compactor, StateSync
 from .synchronizer import Synchronizer
 
 log = logging.getLogger("consensus")
@@ -82,6 +82,7 @@ class Consensus:
         # The engine's protocol state machine (its counters are read by
         # harnesses; the reference keeps it local to ``spawn``).
         self.core: Core | None = None
+        self.compactor: Compactor | None = None
 
     @classmethod
     async def spawn(
@@ -96,11 +97,6 @@ class Consensus:
         tx_commit: asyncio.Queue,  # committed blocks out
         benchmark: bool = False,
     ) -> "Consensus":
-        if parameters.retention_rounds > 0:
-            raise ValueError(
-                "retention_rounds > 0 needs state sync and the compactor, "
-                "which the port does not have yet; use retention_rounds=0"
-            )
         self = cls()
         parameters.log()
 
@@ -140,6 +136,15 @@ class Consensus:
         self.synchronizer = Synchronizer(
             name, committee, store, tx_loopback, parameters.sync_retry_delay
         )
+        # Replica lifecycle: every node answers state probes and runs the
+        # (dormant while healthy) anti-entropy tick; the compactor arms
+        # only when a retention depth is configured.
+        statesync = StateSync(name, committee, parameters.sync_retry_delay)
+        self.compactor = (
+            Compactor(store, parameters.retention_rounds)
+            if parameters.retention_rounds > 0
+            else None
+        )
         self.core = Core(
             name,
             committee,
@@ -157,6 +162,8 @@ class Consensus:
             persist_sync=parameters.persist_sync,
             batch_vote_verification=parameters.batch_vote_verification,
             wire_seats=wire_seats,
+            statesync=statesync,
+            compactor=self.compactor,
         )
         task = asyncio.create_task(self.core.run(), name="consensus_core")
         task.add_done_callback(log_task_death)
@@ -176,7 +183,22 @@ class Consensus:
         self.tasks.append(Helper.spawn(committee, store, tx_helper, parameters.sync_retry_delay))
         return self
 
+    def crash(self) -> None:
+        """Stop the engine the unclean way, as a process crash would: cancel
+        the actor tasks and abort the listeners, with no drain. The store
+        stays open, and a background log rewrite runs on to its end."""
+        for t in self.tasks:
+            t.cancel()
+        self.synchronizer.shutdown()
+        self.mempool_driver.shutdown()
+        for r in self.receivers:
+            r.abort()
+
     async def shutdown(self) -> None:
+        # Let an in-flight background log rewrite finish before the store
+        # is closed underneath its executor thread.
+        if self.compactor is not None:
+            await self.compactor.drain()
         for t in self.tasks:
             t.cancel()
         if self.synchronizer is not None:

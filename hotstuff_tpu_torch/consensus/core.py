@@ -85,8 +85,7 @@ class Core:
     backend_failures = 0
     _wire_seats = None  # state-only instances broadcast legacy v1
     # Replica-lifecycle collaborators (state sync, compaction): None on
-    # state-only instances and in every port node until state sync is
-    # ported; the handlers below then do nothing for them.
+    # state-only instances, whose handlers below then do nothing for them.
     _statesync = None
     _compactor = None
     _last_committed_digest = None  # newest committed block's digest
@@ -157,7 +156,7 @@ class Core:
         # (None = emit legacy v1). Decode-side acceptance is unconditional.
         self._wire_seats = wire_seats
         # Replica lifecycle: anti-entropy state sync and snapshot/truncate
-        # compaction, both driven by this event loop (None here).
+        # compaction, both driven by this event loop.
         self._statesync = statesync
         self._compactor = compactor
         # This node's verified-certificate memory: rebroadcast QCs/TCs
@@ -745,9 +744,8 @@ class Core:
             return
         await self.process_block(block)
 
-    # -- state sync (thin delegates to ``StateSync`` of the reference's
-    # consensus/statesync.py, not ported yet: with ``statesync=None``, as
-    # ``Consensus.spawn`` wires every port engine, they do nothing) ---------
+    # -- state sync (thin delegates: the protocol driver lives in
+    # consensus/statesync.py; events reach it through the merged queue) ----
 
     async def handle_state_request(self, payload) -> None:
         if self._statesync is not None:

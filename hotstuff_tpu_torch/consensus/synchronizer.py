@@ -97,7 +97,14 @@ class Synchronizer:
             now = self._clock()
             self._requests[parent] = now
             self._last_sent[parent] = now
-            address = self.committee.address(block.author)
+            author = block.author
+            if author == self.name:
+                # A block of our own whose parent we lack: our store was
+                # lost (a wiped replica rejoining; the reference asks
+                # itself here, and the request waits for the retry). A
+                # peer that voted for the parent holds it.
+                author = next((pk for pk, _ in block.qc.votes if pk != self.name), author)
+            address = self.committee.address(author)
             if address is not None:
                 self.network.send(
                     address, encode_sync_request(parent, self.name)

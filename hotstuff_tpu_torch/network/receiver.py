@@ -179,19 +179,25 @@ class Receiver:
             self._writers.discard(writer)
             writer.close()
 
-    async def shutdown(self) -> None:
+    def abort(self) -> None:
+        """Stop listening, cancel every connection's handler and abort its
+        transport: the unclean half of ``shutdown``, and all of a crash."""
         if self._server is not None:
             self._closing = True
             self._server.close()
+            for t in list(self._conn_tasks):
+                t.cancel()
+            for w in list(self._writers):
+                w.transport.abort()
+
+    async def shutdown(self) -> None:
+        if self._server is not None:
             # Python 3.12's wait_closed() waits for every connection
             # HANDLER to return, and a handler parked in ``dispatch`` never
             # observes the closed socket: cancel the handlers outright and
             # ABORT the transports (a graceful close first flushes a write
             # buffer that may never drain).
-            for t in list(self._conn_tasks):
-                t.cancel()
-            for w in list(self._writers):
-                w.transport.abort()
+            self.abort()
             try:
                 await asyncio.wait_for(self._server.wait_closed(), timeout=5)
             except asyncio.TimeoutError:  # pragma: no cover - defensive

@@ -6,7 +6,10 @@ counters and the faultline link filter.
 One connection task per peer holding a bounded queue; no retry — on socket
 error the connection task dies and queued messages are dropped; the next
 ``send`` to that peer spawns a fresh connection. Replies from the peer are
-read and discarded (keeps the socket's receive window drained).
+read and discarded (keeps the socket's receive window drained), and when
+that read ends, the peer closed or reset the connection and it ends too, as
+in ``simple_sender.rs``: a peer that crashed and came back on the same
+address gets the next frame on a new connection, not down the dead one.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ class _Connection:
         self.address = address
         self.queue: asyncio.Queue[bytes] = asyncio.Queue(QUEUE_CAPACITY)
         self.evicted = False
+        self.closed = False  # the peer closed or reset the connection
         self._writing = False
         self.task = asyncio.create_task(self._run())
         BUDGET.register(self)
@@ -88,9 +92,13 @@ class _Connection:
                 await read_frame(reader)
         except Exception:
             pass
+        # The read ended: the peer is gone. What is queued here is lost with
+        # it, and the next send opens a fresh connection.
+        self.closed = True
+        self.task.cancel()
 
     def try_send(self, data: bytes) -> bool:
-        if self.evicted or self.task.done():
+        if self.evicted or self.closed or self.task.done():
             return False
         try:
             self.queue.put_nowait(data)

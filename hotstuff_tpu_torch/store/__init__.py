@@ -7,10 +7,9 @@ obligation fulfilled by a later ``write`` — the "wait until data arrives"
 primitive every synchronizer builds on.
 
 The on-disk format is the reference's, byte for byte: a directory one
-package wrote opens in the other. Left in the reference: the C++ engine
-(``store/native/``; ``_default_engine`` here never loads it) and the
-compaction methods (``compact*``, used only by state sync's compactor,
-not ported yet).
+package wrote opens in the other, compacted or not. Left in the
+reference: the C++ engine (``store/native/``; ``_default_engine`` here
+never loads it).
 
 Since the runtime is a single-threaded asyncio loop, actor serialization
 is inherent — no queue hop is needed.
@@ -143,7 +142,8 @@ class LogEngine:
     """Append-only log ``store.log`` + in-memory index, records
     ``u32 klen, u32 vlen, key, value`` (little-endian), flushed per write
     (no fsync, as the reference's RocksDB usage). Voting state goes through
-    ``put_meta`` into the shared ``MetaLog``."""
+    ``put_meta`` into the shared ``MetaLog``. The compactor truncates the
+    log with the phased ``compact_*`` protocol below."""
 
     def __init__(self, path: str) -> None:
         self._index: dict[bytes, bytes] = {}
@@ -157,6 +157,11 @@ class LogEngine:
         _replay_records(self._log_path, self._index)
         self._log = open(self._log_path, "ab")
         self._metalog = MetaLog(path)
+        # Writes arriving while a compaction rewrite is in flight are
+        # mirrored here and appended to the tmp file at commit, so the
+        # atomic replace never discards records the index already holds.
+        self._compacting = False
+        self._delta: list[tuple[bytes, bytes]] = []
 
     def put_meta(self, key: bytes, value: bytes, sync: bool = False) -> None:
         self._metalog.put(key, value, sync=sync)
@@ -168,9 +173,118 @@ class LogEngine:
         self._log.write(_HDR.pack(len(key), len(value)) + key + value)
         self._log.flush()
         self._index[key] = value
+        if self._compacting:
+            self._delta.append((key, value))
 
     def get(self, key: bytes) -> bytes | None:
         return self._index.get(key)
+
+    # -- phased compaction ---------------------------------------------------
+    #
+    # Rewrite ``store.log`` without the dropped keys (and without superseded
+    # records) atomically: tmp + fsync + ``os.replace`` + directory fsync,
+    # so a crash at any point leaves either the old or the new complete
+    # log. ``begin`` snapshots the index on the loop and arms the write
+    # mirror; ``write`` touches only its state object, so ``Store.compact``
+    # runs it on an executor thread while the loop keeps appending;
+    # ``commit`` appends the mirrored delta, swaps the files, and leaves an
+    # open append handle on every path.
+
+    class _CompactState:
+        __slots__ = ("items", "drop", "tmp", "error")
+
+        def __init__(self, items, drop, tmp):
+            self.items = items
+            self.drop = drop
+            self.tmp = tmp
+            self.error: OSError | None = None
+
+    def compact_begin(self, drop_keys) -> "_CompactState | None":
+        """Snapshot the retained records; ``None`` if a compaction is
+        already in flight (the caller retries at the next trigger)."""
+        if self._compacting:
+            return None
+        drop = set(drop_keys)
+        items = [(k, v) for k, v in self._index.items() if k not in drop]
+        self._compacting = True
+        self._delta = []
+        return self._CompactState(items, drop, self._log_path + ".tmp")
+
+    def compact_write(self, state) -> bool:
+        """Write the retained records to the tmp file (flush + fsync).
+        Reads only ``state``: safe on an executor thread."""
+        try:
+            with open(state.tmp, "wb") as f:
+                for k, v in state.items:
+                    f.write(_HDR.pack(len(k), len(v)) + k + v)
+                f.flush()
+                os.fsync(f.fileno())
+            return True
+        except OSError as e:
+            state.error = e
+            return False
+
+    def compact_abort(self, state) -> None:
+        """Discard an in-flight compaction (write failure or shutdown): the
+        live log was never touched."""
+        self._compacting = False
+        self._delta = []
+        try:
+            os.unlink(state.tmp)
+        except OSError:
+            pass
+
+    def compact_commit(self, state) -> int:
+        """Append the delta mirrored during the rewrite, swap the logs
+        atomically, and drop the dead keys from the index. Returns the
+        bytes reclaimed. On any failure the engine keeps an open append
+        handle on whichever log survived."""
+        before = self.size_bytes()
+        replaced = False
+        try:
+            with open(state.tmp, "ab") as f:
+                for k, v in self._delta:
+                    if k not in state.drop:
+                        f.write(_HDR.pack(len(k), len(v)) + k + v)
+                f.flush()
+                os.fsync(f.fileno())
+            self._log.close()
+            os.replace(state.tmp, self._log_path)
+            replaced = True
+            _fsync_dir(self._path)
+        finally:
+            self._compacting = False
+            self._delta = []
+            if not replaced:
+                try:
+                    os.unlink(state.tmp)
+                except OSError:
+                    pass
+            if self._log.closed:
+                # Whatever log is live: the new one after the replace, the
+                # old (intact) one otherwise.
+                self._log = open(self._log_path, "ab")
+        for k in state.drop:
+            self._index.pop(k, None)
+        return max(0, before - self.size_bytes())
+
+    def compact(self, drop_keys) -> int:
+        """The phases in one synchronous call (tests, tools). Unknown keys
+        are kept. Returns the bytes reclaimed (0 if a compaction was in
+        flight or the rewrite failed; the old log stays live)."""
+        state = self.compact_begin(drop_keys)
+        if state is None:
+            return 0
+        if not self.compact_write(state):
+            self.compact_abort(state)
+            return 0
+        return self.compact_commit(state)
+
+    def size_bytes(self) -> int:
+        try:
+            return os.path.getsize(self._log_path)
+        except OSError:
+            return 0
 
     def close(self) -> None:
         self._log.close()
@@ -195,6 +309,14 @@ class MemEngine:
 
     def get_meta(self, key: bytes) -> bytes | None:
         return self._meta.get(key)
+
+    def compact(self, drop_keys) -> int:
+        freed = 0
+        for k in drop_keys:
+            v = self._index.pop(k, None)
+            if v is not None:
+                freed += len(k) + len(v) + _HDR.size
+        return freed
 
     def close(self) -> None:
         pass
@@ -231,6 +353,42 @@ class Store:
 
     async def read_meta(self, key: bytes) -> bytes | None:
         return self._engine.get_meta(key)
+
+    def compaction_offloaded(self) -> bool:
+        """True when this store's engine runs the compaction rewrite off the
+        event loop (the phased protocol): callers may then run ``compact``
+        as a background task."""
+        return hasattr(self._engine, "compact_begin")
+
+    async def compact(self, drop_keys) -> int:
+        """Drop ``drop_keys`` from the data log and reclaim their space (a
+        no-op for engines without compaction). Returns the bytes reclaimed.
+
+        A phased engine's bulk rewrite (the retained records and their
+        fsyncs) runs on the default executor, so votes and timers keep
+        running; only ``compact_begin`` and ``compact_commit`` run on the
+        loop, and writes racing the rewrite are mirrored into it. Engines
+        with only a synchronous ``compact`` (``MemEngine``) run inline."""
+        engine = self._engine
+        begin = getattr(engine, "compact_begin", None)
+        if begin is None:
+            engine_compact = getattr(engine, "compact", None)
+            return 0 if engine_compact is None else engine_compact(drop_keys)
+        state = begin(drop_keys)
+        if state is None:
+            return 0  # a compaction is already in flight
+        fut = asyncio.get_running_loop().run_in_executor(None, engine.compact_write, state)
+        try:
+            ok = await asyncio.shield(fut)
+        except asyncio.CancelledError:
+            # The rewrite thread cannot be interrupted: let it finish, then
+            # discard its output (the live log was never touched).
+            fut.add_done_callback(lambda _f: engine.compact_abort(state))
+            raise
+        if not ok:
+            engine.compact_abort(state)
+            raise StoreError(f"compaction rewrite failed: {state.error}")
+        return engine.compact_commit(state)
 
     async def notify_read(self, key: bytes) -> bytes:
         """Return the value for ``key``, waiting for a future ``write`` if it

@@ -144,17 +144,3 @@ async def test_port_engines_behind_batched_cuda_backend_on_plain_kernels():
     agree(rounds)
     assert backend.inner_calls > 0 and backend.inner.dispatches == backend.inner_calls
     assert sum(e.core.backend_failures for e in engines) == 0
-
-
-def test_retention_is_refused_until_state_sync_is_ported():
-    async def spawn():
-        pk, sk = t_crypto.generate_keypair(seed=seeded(1)[0])[:2]
-        committee = t_consensus.Committee({pk: t_consensus.Authority(1, ("127.0.0.1", BASE + 90))})
-        await t_consensus.Consensus.spawn(
-            pk, committee, t_consensus.Parameters(retention_rounds=5),
-            t_crypto.SignatureService(sk), t_store.Store(),
-            asyncio.Queue(), asyncio.Queue(), asyncio.Queue(),
-        )
-
-    with pytest.raises(ValueError, match="retention_rounds"):
-        asyncio.run(spawn())

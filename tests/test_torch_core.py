@@ -389,14 +389,27 @@ async def test_sync_request_on_missing_parent():
         node.stop()
         return {"requests": requests, **await node.snapshot()}
 
-    snap = await both(scenario)
+    # Node 0 authored blocks[2] itself. The packages part on where the
+    # request goes: the reference asks the block's author, here itself, and
+    # the port asks a peer that signed the block's QC (ROADMAP §3 F4).
+    # Everything else is the same.
+    snaps = {name: await scenario(Env(name)) for name in ("reference", "port")}
+    sent = {name: snap.pop("requests") for name, snap in snaps.items()}
+    assert snaps["reference"].pop("sync_frames") == sent["reference"]
+    assert snaps["port"].pop("sync_frames") == sent["port"]
+    assert snaps["port"] == snaps["reference"]
     env = Env("port")
     blocks = env.chain(3)
-    (how, port, data), = snap["requests"]
+    assert blocks[2].author == env.keys[0][0]
+    (ref_how, ref_port, ref_data), = sent["reference"]
+    (how, port, data), = sent["port"]
+    assert ref_how == how == "send" and ref_data == data
+    assert ref_port == env.committee.address(blocks[2].author)[1]
+    voters = {env.committee.address(pk)[1] for pk, _ in blocks[2].qc.votes if pk != env.keys[0][0]}
+    assert port in voters
     kind, (digest, origin) = PKGS["port"].messages.decode_message(data)
-    assert how == "send" and port == env.committee.address(blocks[2].author)[1]
     assert kind == "sync_request" and digest == blocks[1].digest() and origin == env.keys[0][0]
-    assert snap["commits"] == [blocks[0].digest().data]
+    assert snaps["port"]["commits"] == [blocks[0].digest().data]
 
 
 @async_test

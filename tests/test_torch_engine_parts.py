@@ -204,6 +204,35 @@ async def test_suspend_timestamps_come_from_injected_clock():
         s.shutdown()
 
 
+@async_test(timeout=30)
+async def test_suspend_on_an_own_block_asks_a_voter_of_its_parent():
+    """A replica whose store was lost meets a block it authored itself
+    (before the loss, or proposed since on a QC it holds without the
+    block): the request for the parent goes to a peer that voted for the
+    parent, not to its own empty store."""
+    committee = consensus_committee(BASE + 9)
+    blocks = chain(3)
+    own = blocks[2]
+    s = Synchronizer(own.author, committee, Store(), asyncio.Queue(), 5_000)
+    sent = []
+    s.network = type(
+        "Rec", (), {
+            "send": lambda self, a, d: sent.append(a),
+            "broadcast": lambda self, addrs, d: None,
+        },
+    )()
+    try:
+        s._suspend(own)
+        voters = {committee.address(pk) for pk, _ in own.qc.votes if pk != own.author}
+        assert len(sent) == 1 and sent[0] in voters, (sent, voters)
+        assert sent[0] != committee.address(own.author)
+        # Another's block still asks its author, as the reference does.
+        s._suspend(blocks[1])
+        assert sent[1] == committee.address(blocks[1].author)
+    finally:
+        s.shutdown()
+
+
 # -- twins of tests/test_consensus_helper.py ----------------------------------
 
 

@@ -539,3 +539,35 @@ async def test_auto_ack_receiver_acks_each_frame_of_a_burst():
     finally:
         sender.shutdown()
         await receiver.shutdown()
+
+
+@async_test
+async def test_simple_sender_reaches_a_peer_that_restarted():
+    """A peer crashes (its listener's transports aborted) and comes back on
+    the same address: the first frame sent after its return arrives. The
+    connection ends when the peer resets it, as ``simple_sender.rs`` ends a
+    connection whose read fails, so the frame goes down a new connection
+    instead of into the dead one."""
+    port = BASE_PORT + 73
+    first, second = _Recorder(), _Recorder()
+    receiver = await Receiver.spawn(("127.0.0.1", port), first)
+    sender = SimpleSender()
+    try:
+        sender.send(("127.0.0.1", port), b"before")
+        for _ in range(100):
+            if first.received:
+                break
+            await asyncio.sleep(0.02)
+        assert first.received == [b"before"]
+        receiver.abort()
+        await asyncio.sleep(0.2)
+        receiver = await Receiver.spawn(("127.0.0.1", port), second)
+        sender.send(("127.0.0.1", port), b"after")
+        for _ in range(100):
+            if second.received:
+                break
+            await asyncio.sleep(0.02)
+        assert second.received == [b"after"]
+    finally:
+        sender.shutdown()
+        await receiver.shutdown()
