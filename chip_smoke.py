@@ -220,7 +220,27 @@ unguarded (any failure ends the run with a non-zero exit):
       with no launch. It prints ms per snapshot verify beside two lone
       ``QC.verify``s (CUDA events, in turns, median of 10 each); then the
       cached kernels against their plain versions at every (mf, mc) that
-      parts a-c ran them at.
+      parts a-c ran them at;
+13. the sharded verifier (``hotstuff_tpu_torch/parallel/mesh.py``):
+   a. the tree-combine verdict (``verdict_tree``) against its plain version
+      on the card, limb for limb and the same bool, at 1, 2, 3, 4, 6 and 8
+      shards, with and without the second MSM's results, over phase 3's
+      1024 fresh-lane ok flags (points from the seed whose sum is the
+      identity; an ok with one False rejected; the point alone the same),
+      timed as in phase 5;
+   b. phase 3's first QC through ``verify_batch_device_cached_sharded`` and
+      ``verify_batch_device_sharded`` on meshes of ``cuda:0`` repeated 1, 2,
+      3, 4 and 8 times (the counts zeroed before and read after). On each,
+      the QC is accepted on both paths; a warm QC launches exactly
+      decompress D, K2 2D, K3 2D, ``verdict_tree`` 1 (cached) and decompress
+      D, K4 D, K3 D, ``verdict_tree`` 1 (uncached), and nothing else; a
+      signature whose R moved to R + B (a valid point) is rejected in each
+      shard that holds a signature, on both paths, as the unsharded paths
+      reject it. ``msm_sharded`` over 4 shards equals the unsharded MSM by
+      canonical affine encoding. It prints ms per QC by D beside the
+      unsharded calls, in turns (host clock, median of 5; on one card the
+      shards run one after another);
+   c. with more than one card visible, 13b over distinct cards.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -232,7 +252,11 @@ the QC kernels' at its widest width, ``sha512``'s at its widest drain;
 ``launches_rejoin`` from phase 12a's restart to the end of its first install
 (every engine's), ``launches_rejoin_snapshot`` from the card calls that
 verified the snapshot's two QCs in that window, and the ``rejoin_*`` keys at
-phase 12's widest width) and
+phase 12's widest width; ``launches_sharded`` from phase 13b, which is also
+``verdict_tree``'s ``launches``, since only the sharded path reaches it; its
+row's times at 8 shards with both MSMs' results, and its
+``sharded_ms_per_qc`` by D (cached, uncached) beside ``unsharded_ms_per_qc``)
+and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -319,6 +343,7 @@ from hotstuff_tpu_torch.ops import field as fe  # noqa: E402
 from hotstuff_tpu_torch.ops import msm_kernels as mk  # noqa: E402
 from hotstuff_tpu_torch.ops import sha512 as sha  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
+from hotstuff_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hotstuff_tpu_torch.store import LogEngine, Store  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder  # noqa: E402
@@ -336,6 +361,9 @@ SOURCES = {
     "msm_combine": ("hotstuff_tpu_torch/csrc/msm_combine.cu", "hotstuff_tpu/ops/pallas_msm.py:562"),
     "msm_partials": ("hotstuff_tpu_torch/csrc/msm_partials.cu", "hotstuff_tpu/ops/pallas_msm.py:483"),
     "verdict": ("hotstuff_tpu_torch/csrc/verdict.cu", None),
+    # jnp in the reference's sharded verify graphs: ``_combine_partials`` and
+    # the verdict after it.
+    "verdict_tree": ("hotstuff_tpu_torch/csrc/verdict.cu", "hotstuff_tpu/parallel/mesh.py:55"),
     # No Pallas kernel either: jnp under jax.jit (``_compiled``).
     "sha512": ("hotstuff_tpu_torch/csrc/sha512.cu", "hotstuff_tpu/ops/sha512.py:149"),
 }
@@ -344,7 +372,7 @@ PATH_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "msm_partial
 # The cached path's kernels: the node path's (phase 8) and the data plane's (phase 11).
 PHASE8_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 WARM_QC_LAUNCHES = {"decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "msm_partials": 0,
-                    "msm_combine": 2, "verdict": 1}
+                    "msm_combine": 2, "verdict": 1, "verdict_tree": 0}
 # The same beside the digest kernel's count, which a verify leaves at 0.
 WARM_QC_ALL = {**WARM_QC_LAUNCHES, "sha512": 0}
 # Phase 7's ceiling per warm QC: aten ops the profiler sees, and device ops.
@@ -470,6 +498,12 @@ REJOIN_N, REJOIN_PORTS, REJOIN_RETENTION, REJOIN_VICTIM = 4, 10500, 16, 1
 REJOIN_CRASH_S, REJOIN_RESTART_S, REJOIN_RECOVERY_S, REJOIN_COMMITS = 2.0, 8.0, 30.0, 3
 WARM_PORTS, WARM_VICTIM, WARM_DOWN_S, WARM_WINDOW_S = 10510, 2, 3.0, 8.0
 PHASE12_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
+# Phase 13: the sharded verifier. 13a holds the tree-combine verdict at
+# these shard counts; 13b verifies phase 3's QC on meshes of the one card
+# repeated this many times, and of three shards (an odd width, where the
+# reference's combine drops a shard).
+TREE_WIDTHS = (1, 2, 3, 4, 6, 8)
+MESH_WIDTHS = (1, 2, 3, 4, 8)
 
 
 class SmokeFailure(RuntimeError):
@@ -505,7 +539,8 @@ def ptxas_usage() -> dict[str, tuple[int, int, int]]:
     mangled = {"decompress": "decompress_kernel",
                "sqrt_pow": "sqrt_pow_kernel", "msm_partials_signed": "msm_partials_kernelILb1",
                "msm_partials": "msm_partials_kernelILb0", "msm_combine": "msm_combine_kernel",
-               "verdict": "verdict_kernel", "sha512": "sha512_kernel"}
+               "verdict": "verdict_kernel", "verdict_tree": "verdict_tree_kernel",
+               "sha512": "sha512_kernel"}
     usage, current = {}, None
     for _, log in kernel_build.build_log.values():
         for line in log.splitlines():
@@ -2706,6 +2741,218 @@ def rejoin_phase(seed: int, card: str, device, imad_per_s: float, keys, committe
                                                         "rejoin")
 
 
+# -- phase 13: the sharded verifier --------------------------------------------
+
+
+def shard_results(d: int, seed: int, device, with_b: bool):
+    """Shard results on the card, multiples of the base point from ``seed``:
+    ([d, 4, 20], the same or None), whose sum is the identity (the last
+    point cancels the rest), each doubled once so its limbs are not the
+    affine ones."""
+    rng = random.Random(seed)
+    pts = [ref.point_mul(rng.getrandbits(250), ref.G) for _ in range(2 * d if with_b else d)]
+    total = ref.IDENTITY
+    for q in pts[:-1]:
+        total = ref.point_add(total, q)
+    x, y, z, t = total
+    pts[-1] = (-x % ref.P, y, z, -t % ref.P)
+    rows = []
+    for x, y, z, _ in pts:
+        zi = ref.inv(z)
+        xa, ya = x * zi % ref.P, y * zi % ref.P
+        rows.append(np.stack([fe._int_to_limbs(xa), fe._int_to_limbs(ya), fe.ONE_LIMBS,
+                              fe._int_to_limbs(xa * ya % ref.P)]))
+    arr = cv.point_double(torch.from_numpy(np.stack(rows).astype(np.int32))).to(device)
+    return arr[:d].contiguous(), (arr[d:].contiguous() if with_b else None)
+
+
+def tree_checks(device, imad_per_s: float, m: int) -> tuple[dict, list[str]]:
+    """13a: ``verdict_tree`` against ``verdict_tree_plain`` on the card at
+    every width of ``TREE_WIDTHS``, with and without the second results,
+    over ``m`` ok flags (the fresh lanes of phase 3's QC); timed. Returns
+    the JSON row (8 shards with b: a cached QC on the widest mesh) and the
+    lines to print."""
+    row, notes = None, []
+    for d in TREE_WIDTHS:
+        for with_b in (True, False):
+            pair = [x for x in shard_results(d, 13_000 + 2 * d + with_b, device, with_b)
+                    if x is not None]
+            ok = torch.ones(m, dtype=torch.bool, device=device)
+            verdict, point = mk.verdict_tree(ok, *pair)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            verdict_p, point_p = mk.verdict_tree_plain(ok, *pair)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t) * 1e3
+            err = max_abs_err(point, point_p)
+            check(err == 0 and bool(verdict) and bool(verdict_p),
+                  f"verdict_tree at d={d}: kernel {bool(verdict)}, plain "
+                  f"{bool(verdict_p)}, points differ by {err}")
+            check(torch.equal(mk.verdict_tree(None, *pair)[1], point_p),
+                  f"verdict_tree's point alone at d={d} differs")
+            ok[-1] = False
+            check(not bool(mk.verdict_tree(ok, *pair)[0]), "verdict_tree accepted an ok False")
+            ok[-1] = True
+            adds = (d if with_b else 0) + d - 1
+            b_ms, b_by = bound_ms(adds * MULS_PADD + 3 * MULS_PDOUBLE,
+                                  m + 320 * d * len(pair) + 1 + 320, imad_per_s)
+            ms, ev, pr = kernel_ms(lambda: mk.verdict_tree(ok, *pair), 20,
+                                   PROFILER_NAMES["verdict_tree"])
+            chain = adds * STAGES_PADD + 3 * STAGES_PDOUBLE
+            shape = f"ok [{m}], a{', b' if with_b else ''} [{d}, 4, 20]"
+            notes.append(f"verdict_tree {shape}: grid (1, 1) x 128 threads, "
+                         f"{usage_note('verdict_tree')}; {ms:.4f} ms (events {ev:.4f}, profiler "
+                         f"{pr:.4f}; plain {plain:.1f} ms, bound {b_ms:.6f} ms; serial chain "
+                         f"{chain} dependent mul stages)")
+            if d == 8 and with_b:
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           shape=shape)
+    return row, notes
+
+
+def moved_r(batch, j: int):
+    """``batch`` with signature j's R moved to R + B: a valid point, so every
+    lane decompresses and only the combined sum can reject."""
+    msgs, pubs, sigs = batch
+    sigs = list(sigs)
+    sigs[j] = ref.point_compress(ref.point_add(ref.point_decompress(sigs[j][:32]), ref.G)) \
+        + sigs[j][32:]
+    return msgs, pubs, sigs
+
+
+def first_signatures(n: int, mf: int, d: int) -> dict[int, int]:
+    """The first of ``n`` signatures whose fresh R row lies in each shard of
+    ``d`` that holds one (the uncached path's R lanes split the same way)."""
+    per = pm._shard_target(mf, d) // d
+    firsts = {}
+    for j in range(n):
+        firsts.setdefault(j // per, j)
+    return firsts
+
+
+def sharded_launches(d: int, cached: bool) -> dict:
+    """A warm sharded QC's launches over d shards."""
+    want = dict.fromkeys(launch_counts(), 0)
+    if cached:
+        want.update(decompress=d, msm_partials_signed=2 * d, msm_combine=2 * d, verdict_tree=1)
+    else:
+        want.update(decompress=d, msm_partials=d, msm_combine=d, verdict_tree=1)
+    return want
+
+
+def mesh_checks(mesh: pm.Mesh, batch, mf: int, unsharded: dict) -> list[int]:
+    """13b on one mesh: phase 3's QC accepted on both sharded paths, a warm
+    QC's launches exact, and a tampered signature in each shard that holds
+    one rejected, each verdict equal to the unsharded path's. Returns the
+    shards holding a signature."""
+    d = mesh.size
+    cache = ov.DevicePointCache(device=mesh.devices[0])
+    check(pm.verify_batch_device_cached_sharded(mesh, *batch, cache), f"D={d}: QC rejected")
+    for cached in (True, False):
+        before = launch_counts()
+        if cached:
+            ok = pm.verify_batch_device_cached_sharded(mesh, *batch, cache)
+        else:
+            ok = pm.verify_batch_device_sharded(mesh, *batch)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        check(ok is True, f"D={d}: the warm QC rejected ({'cached' if cached else 'uncached'})")
+        want = sharded_launches(d, cached)
+        check(got == want, f"D={d}: a warm sharded QC launched {got}, expected {want}")
+    firsts = first_signatures(len(batch[0]), mf, d)
+    for shard, j in firsts.items():
+        bad = moved_r(batch, j)
+        got = (pm.verify_batch_device_cached_sharded(mesh, *bad, cache),
+               pm.verify_batch_device_sharded(mesh, *bad))
+        check(got == unsharded[j] == (False, False),
+              f"D={d}: a tampered signature {j} in shard {shard}: sharded {got}, unsharded "
+              f"{unsharded[j]}")
+    return sorted(firsts)
+
+
+def sharded_phase(qc: QC, devices: list, card: str) -> dict:
+    """13b (or 13c on distinct cards): phase 3's QC through the sharded
+    verifiers on meshes of ``devices`` cut to each of ``MESH_WIDTHS``.
+    Returns the launches of the sharded runs and ms per QC by width."""
+    batch = qc_batch(qc)
+    lead = devices[0]
+    n = len(batch[0])
+    mf = 1 << max(2, (n - 1).bit_length())
+    # The unsharded verdicts, outside the counted window: the valid QC and
+    # every tampered signature the meshes below use.
+    cache_u = ov.DevicePointCache(device=lead)
+    check(ov.verify_batch_device_cached(*batch, cache_u) and
+          ov.verify_batch_device(*batch, device=lead), "the unsharded paths rejected the QC")
+    tampered = sorted({j for d in MESH_WIDTHS for j in first_signatures(n, mf, d).values()})
+    unsharded = {j: (ov.verify_batch_device_cached(*moved_r(batch, j), cache_u),
+                     ov.verify_batch_device(*moved_r(batch, j), device=lead)) for j in tampered}
+    meshes = [pm.make_mesh(devices=devices * d if len(devices) == 1 else devices[:d])
+              for d in MESH_WIDTHS if len(devices) == 1 or d <= len(devices)]
+
+    reset_launches()
+    holding = {mesh.size: mesh_checks(mesh, batch, mf, unsharded) for mesh in meshes}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    # ms per QC (host clock around the call, host prep and the one sync
+    # included; median of 5), each mesh beside the unsharded calls, in turns.
+    times = {"unsharded": ([], [])}
+    for mesh in meshes:
+        cache = ov.DevicePointCache(device=mesh.devices[0])
+        pm.verify_batch_device_cached_sharded(mesh, *batch, cache)  # keys onto the card
+        times[mesh.size] = (
+            median_ms(lambda: pm.verify_batch_device_cached_sharded(mesh, *batch, cache), 5),
+            median_ms(lambda: pm.verify_batch_device_sharded(mesh, *batch), 5))
+        times["unsharded"][0].append(
+            median_ms(lambda: ov.verify_batch_device_cached(*batch, cache_u), 5))
+        times["unsharded"][1].append(
+            median_ms(lambda: ov.verify_batch_device(*batch, device=lead), 5))
+    for mesh in meshes:
+        d, shards = mesh.size, holding[mesh.size]
+        print(f"  D={d} over {', '.join(str(x) for x in dict.fromkeys(mesh.devices))}: the "
+              f"QC accepted on both sharded paths; a tampered signature in each of shards "
+              f"{shards} rejected on both (the other {d - len(shards)} hold padding only); each "
+              f"verdict equal to the unsharded path's; warm launches exact; ms per QC on {card}: "
+              f"cached {times[d][0]:.2f}, uncached {times[d][1]:.2f}")
+    u_cached, u_uncached = times.pop("unsharded")
+    print(f"  unsharded on {card} in the same turns: cached {min(u_cached):.2f}-{max(u_cached):.2f}"
+          f" ms, uncached {min(u_uncached):.2f}-{max(u_uncached):.2f} ms per QC")
+    return {"launches": launches, "times": times,
+            "unsharded": (float(np.median(u_cached)), float(np.median(u_uncached)))}
+
+
+def mesh_phase(qcs, lead, card: str, imad_per_s: float):
+    """Phase 13: the tree-combine verdict against its plain version (13a),
+    the sharded verifiers on meshes of ``lead`` (13b) and, where more than
+    one card is visible, over distinct cards (13c)."""
+    t = time.perf_counter()
+    n = len(qcs[0].votes)
+    tree_row, notes = tree_checks(lead, imad_per_s, 1 << (n - 1).bit_length())
+    print(f"verdict_tree vs plain on the card (limb-exact point, equal verdict) at d = "
+          f"{', '.join(map(str, TREE_WIDTHS))}, with and without b:")
+    for line in notes:
+        print("  " + line)
+    print(f"sharded verifier, phase 3's QC ({n} signatures), meshes of one card repeated:")
+    run = sharded_phase(qcs[0], [lead], card)
+    # msm_sharded over 4 shards against the unsharded MSM, on the uncached
+    # batch's lanes.
+    packed, _ = ov.prepare_batch(*qc_batch(qcs[0]))
+    _, pts, digits = ov.uncached_inputs(torch.from_numpy(packed).to(lead))
+    got = pm.msm_sharded(pm.make_mesh(devices=[lead] * 4), pts, digits)
+    check(cv.to_affine_bytes(got) == cv.to_affine_bytes(mk.msm(pts, digits)),
+          "msm_sharded over 4 shards != the unsharded MSM")
+    print(f"  msm_sharded over 4 shards of {pts.shape[0] // 4} lanes equals the unsharded "
+          f"mk.msm (canonical affine encoding)")
+    if torch.cuda.device_count() > 1:
+        print(f"13c: the same over {torch.cuda.device_count()} distinct cards:")
+        sharded_phase(qcs[0], pm.visible_devices(), card)
+    else:
+        print("13c: one card visible; the sharded verifier over distinct cards is not run")
+    print(f"phase 13 in {time.perf_counter() - t:.1f} s; launches of the sharded runs "
+          f"{run['launches']}")
+    return run, tree_row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2867,9 +3114,17 @@ def main() -> int:
     rejoin_launches, snapshot_launches, rejoin_rows = rejoin_phase(
         args.seed, card, device, imad_per_s, keys, committee)
 
+    # 13. the sharded verifier: the tree-combine verdict, then phase 3's QC
+    # on meshes of the card
+    sharded, tree_row = mesh_phase(qcs, torch.device("cuda", 0), card, imad_per_s)
+    sharded_launches_ = sharded["launches"]
+    rows["verdict_tree"] = tree_row
+    # The sharded runs are the tree kernel's path; phase 3 never reaches it.
+    launches["verdict_tree"] = sharded_launches_["verdict_tree"]
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
-                 "verdict"):
+                 "verdict", "verdict_tree"):
         source, replaces = SOURCES[name]
         row = rows[name]
         entry = {
@@ -2883,7 +3138,11 @@ def main() -> int:
             "launches_conveyor": conveyor_launches[name],
             "launches_rejoin": rejoin_launches[name],
             "launches_rejoin_snapshot": snapshot_launches[name],
+            "launches_sharded": sharded_launches_[name],
         }
+        if name == "verdict_tree":
+            entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
+            entry["unsharded_ms_per_qc"] = sharded["unsharded"]
         for prefix, extra in (("fused", fused_rows), ("widest", wide_rows),
                               ("committee", committee_rows), ("config1", config1_rows),
                               ("conveyor", conveyor_rows), ("rejoin", rejoin_rows)):
@@ -2905,6 +3164,7 @@ def main() -> int:
         "launches_conveyor": conveyor_launches["sha512"],
         "launches_rejoin": rejoin_launches["sha512"],
         "launches_rejoin_snapshot": snapshot_launches["sha512"],
+        "launches_sharded": sharded_launches_["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

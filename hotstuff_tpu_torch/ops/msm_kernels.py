@@ -15,15 +15,18 @@ Port of ``hotstuff_tpu/ops/pallas_msm.py``. Sources in
   ``_partials_kernel``;
 - ``verdict`` (``verdict.cu``): all(ok) and the cofactor-8 identity check
   of the MSM result, jnp code in the reference (``ops/verify.py``), no
-  Pallas kernel.
+  Pallas kernel;
+- ``verdict_tree`` (``verdict.cu``): the sharded verifier's combine of the
+  shards' MSM results and the same verdict, jnp code in the reference
+  (``parallel/mesh.py`` ``_combine_partials`` and its callers).
 
 ``msm_signed``/``msm`` chain K2/K4 into K3, as the reference's ``_build``
 functions chain its two ``pallas_call``s.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a
-CUDA tensor it launches the kernel or raises. Each kernel's plain version
-repeats the kernel's arithmetic in the same order, so kernel and plain
-version agree limb for limb; for the whole MSM the CPU path is
+CUDA tensor it launches the kernel on that tensor's card, or raises. Each
+kernel's plain version repeats the kernel's arithmetic in the same order,
+so kernel and plain version agree limb for limb; for the whole MSM the CPU path is
 ``curve.msm_signed``/``curve.msm``, the step-by-step port of the
 reference's plain MSM (its additions run in another order, so MSM results
 compare by canonical affine encoding).
@@ -41,7 +44,7 @@ from . import field as fe
 
 LAUNCHES = {
     "decompress": 0, "sqrt_pow": 0, "msm_partials_signed": 0, "msm_partials": 0,
-    "msm_combine": 0, "verdict": 0,
+    "msm_combine": 0, "verdict": 0, "verdict_tree": 0,
 }
 
 # Lanes per CTA (one thread per lane) of sqrt_pow and of the partials kernels;
@@ -95,11 +98,15 @@ def _check(t: torch.Tensor, shape: tuple, what: str, dtype=torch.int32) -> torch
     return t.contiguous()
 
 
-def _launch(source: str, fn: str, counter: str, *args) -> None:
+def _launch(source: str, fn: str, counter: str, device: torch.device, *args) -> None:
+    """Launch on ``device``, the card of the tensors in ``args``, and its
+    current stream: the runtime launches on the current card, which need not
+    be theirs."""
     from hotstuff_tpu_torch.utils.kernel_build import kernel
 
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = kernel(source, fn)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = kernel(source, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")
     LAUNCHES[counter] += 1
@@ -127,7 +134,7 @@ def decompress(y: torch.Tensor, sign: torch.Tensor):
     ok = torch.empty(m, dtype=torch.bool, device=y.device)
     pts = torch.empty((m, 4, fe.NLIMB), dtype=torch.int32, device=y.device)
     _launch(
-        "decompress", "decompress_launch", "decompress",
+        "decompress", "decompress_launch", "decompress", y.device,
         y.data_ptr(), sign.data_ptr(), ok.data_ptr(), pts.data_ptr(), m,
     )
     return ok, pts
@@ -178,7 +185,7 @@ def sqrt_pow(u: torch.Tensor, v: torch.Tensor, block: int | None = None) -> torc
     r = torch.empty_like(u)
     block = min(SQRT_POW_BLOCK, m) if block is None else block
     _launch(
-        "sqrt_pow", "sqrt_pow_launch", "sqrt_pow",
+        "sqrt_pow", "sqrt_pow_launch", "sqrt_pow", u.device,
         u.data_ptr(), v.data_ptr(), r.data_ptr(), m, block,
     )
     return r
@@ -233,7 +240,7 @@ def msm_partials(
     else:
         fn, counter = "msm_partials_unsigned_launch", "msm_partials"
     _launch(
-        "msm_partials", fn, counter,
+        "msm_partials", fn, counter, points.device,
         points.data_ptr(), digits.data_ptr(), out.data_ptr(), m, n_windows, block,
         PARTIALS_WINDOW_GROUP,
     )
@@ -271,7 +278,7 @@ def msm_combine(partials: torch.Tensor) -> torch.Tensor:
     sums = torch.empty((n_windows, 4, fe.NLIMB), dtype=torch.int32, device=partials.device)
     ticket = torch.zeros(1, dtype=torch.int32, device=partials.device)
     _launch(
-        "msm_combine", "msm_combine_launch", "msm_combine",
+        "msm_combine", "msm_combine_launch", "msm_combine", partials.device,
         partials.data_ptr(), out.data_ptr(), sums.data_ptr(), ticket.data_ptr(),
         n_blocks, n_windows,
     )
@@ -320,8 +327,56 @@ def verdict(ok: torch.Tensor, a: torch.Tensor, b: torch.Tensor | None = None) ->
         b = _check(b, (4, fe.NLIMB), "verdict b")
     out = torch.empty((), dtype=torch.bool, device=a.device)
     _launch(
-        "verdict", "verdict_launch", "verdict",
+        "verdict", "verdict_launch", "verdict", a.device,
         ok.data_ptr(), ok.shape[0], a.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(),
     )
     return out
+
+
+# -- the sharded verdict ------------------------------------------------------
+
+# The most shards ``verdict_tree`` combines (``kMaxShards`` in verdict.cu).
+MAX_SHARDS = 64
+
+
+def verdict_tree_plain(ok: torch.Tensor | None, a: torch.Tensor, b: torch.Tensor | None = None):
+    """[d, 4, 20] shard results (and the second MSM's, or None) ->
+    (verdict, combined point [4, 20]): s_i = a_i + b_i, then s[:half] +
+    s[half:2 half] a level, the last point carried at an odd width, then
+    ``verdict_plain`` of the sum (None for the verdict when ``ok`` is None).
+    At a power-of-two d the tree is the reference's ``_combine_partials``
+    (``hotstuff_tpu/parallel/mesh.py:55-64``) limb for limb; at an odd d the
+    reference drops the carried point."""
+    s = a if b is None else cv.point_add(a, b)
+    while s.shape[0] > 1:
+        half = s.shape[0] // 2
+        s = torch.cat([cv.point_add(s[:half], s[half : 2 * half]), s[2 * half :]])
+    return (None if ok is None else verdict_plain(ok, s[0])), s[0]
+
+
+def verdict_tree(ok: torch.Tensor | None, a: torch.Tensor, b: torch.Tensor | None = None):
+    """The tree-combine verdict kernel for every shard's ok flags, bool [m],
+    and the shards' MSM results, int32 [d, 4, 20] (1 <= d <= 64), all on one
+    card: (0-dim bool or None, combined point [4, 20]), limb for limb
+    ``verdict_tree_plain``. With ``ok`` None only the point is computed."""
+    if a.device.type == "cpu":
+        return verdict_tree_plain(ok, a, b)
+    d = a.shape[0]
+    if not 1 <= d <= MAX_SHARDS:
+        raise ValueError(f"verdict_tree: {d} shards (1 to {MAX_SHARDS})")
+    a = _check(a, (d, 4, fe.NLIMB), "verdict_tree a")
+    if b is not None:
+        b = _check(b, (d, 4, fe.NLIMB), "verdict_tree b")
+    out = None
+    if ok is not None:
+        ok = _check(ok, (ok.shape[0],), "verdict_tree ok", torch.bool)
+        out = torch.empty((), dtype=torch.bool, device=a.device)
+    point = torch.empty((4, fe.NLIMB), dtype=torch.int32, device=a.device)
+    _launch(
+        "verdict", "verdict_tree_launch", "verdict_tree", a.device,
+        None if ok is None else ok.data_ptr(), 0 if ok is None else ok.shape[0], a.data_ptr(),
+        None if b is None else b.data_ptr(), d, None if out is None else out.data_ptr(),
+        point.data_ptr(),
+    )
+    return out, point

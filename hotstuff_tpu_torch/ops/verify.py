@@ -295,15 +295,24 @@ def cached_inputs(packed: torch.Tensor, cache_arr: torch.Tensor, mf: int):
     Cached rows: 64 biased digits, row index (lo, hi).
     """
     b = packed.to(torch.int32)
-    fresh, cached = b[:mf], b[mf:]
-    y_limbs = _enc_to_y_limbs(fresh[:, :32])
-    ok_f, pts_f = mk.decompress(y_limbs, fresh[:, 65])
-    digits_f = fresh[:, 32:65].T - 8  # [33, mf] signed
-
-    rows = cached[:, 64] | (cached[:, 65] << 8)
-    pts_c = cache_arr.index_select(0, rows.long())  # [mc, 4, 20]
-    digits_c = cached[:, :64].T - 8  # [64, mc] signed
+    ok_f, pts_f, digits_f = fresh_inputs(b[:mf])
+    rows, digits_c = cached_rows(b[mf:])
+    pts_c = cache_arr.index_select(0, rows)  # [mc, 4, 20]
     return ok_f, pts_f, digits_f, pts_c, digits_c
+
+
+def fresh_inputs(fresh: torch.Tensor):
+    """The fresh rows of a split batch, int32 [mf, 66] on their device,
+    decompressed (K1): (ok_f [mf], pts_f [mf, 4, 20], digits_f [33, mf])."""
+    ok_f, pts_f = mk.decompress(_enc_to_y_limbs(fresh[:, :32]), fresh[:, 65])
+    return ok_f, pts_f, fresh[:, 32:65].T - 8  # [33, mf] signed
+
+
+def cached_rows(cached: torch.Tensor):
+    """The cached rows of a split batch, int32 [mc, 66]: (cache row
+    indices int64 [mc], digits_c [64, mc])."""
+    rows = cached[:, 64] | (cached[:, 65] << 8)
+    return rows.long(), cached[:, :64].T - 8  # [64, mc] signed
 
 
 def run_cached(packed: torch.Tensor, cache_arr: torch.Tensor, mf: int) -> torch.Tensor:

@@ -69,6 +69,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "msm_partials_unsigned_launch": [vp, vp, vp, i, i, i, i, vp],
         "msm_combine_launch": [vp, vp, vp, vp, i, i, vp],
         "verdict_launch": [vp, i, vp, vp, vp, vp],
+        "verdict_tree_launch": [vp, i, vp, vp, i, vp, vp, vp],
         "sha512_launch": [vp, i64, vp, vp, i, vp, vp],
     }
     for name, argtypes in sigs.items():

@@ -96,6 +96,7 @@ PROFILER_NAMES = {
     "msm_partials": "msm_partials_kernel<false>",
     "msm_combine": "msm_combine_kernel",
     "verdict": "verdict_kernel",
+    "verdict_tree": "verdict_tree_kernel",
     "sha512": "sha512_kernel",
 }
 

@@ -28,6 +28,7 @@ import torch
 from hotstuff_tpu_torch import crypto
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
 from hotstuff_tpu_torch.ops import sha512, verify
+from hotstuff_tpu_torch.parallel import make_mesh
 raised = {}
 if not torch.cuda.is_available():
     for what, call in [
@@ -37,6 +38,7 @@ if not torch.cuda.is_available():
         ("get_backend", crypto.get_backend),
         ("set_backend cuda-batched", lambda: crypto.set_backend("cuda-batched")),
         ("sha512_batch", lambda: sha512.sha512_batch([b"m"])),
+        ("make_mesh", make_mesh),
     ]:
         try:
             call()
@@ -72,7 +74,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "utils.logging", "ops.sha512", "mempool", "mempool.messages", "mempool.config",
                  "mempool.batch_maker", "mempool.quorum_waiter", "mempool.processor",
                  "mempool.helper", "mempool.mempool", "node", "node.config", "node.node",
-                 "node.__main__", "node.client"):
+                 "node.__main__", "node.client", "parallel", "parallel.mesh"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:

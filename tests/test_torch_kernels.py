@@ -7,8 +7,10 @@ of JAX, so it runs on a GPU host that has only the port's dependencies:
 
 Tolerance: limb-exact between each kernel and its plain version (they
 repeat the same arithmetic in the same order), the decompression's ok flags
-and the verdict's bool equal; MSM results also equal the RFC 8032 oracle by
-compressed encoding, and the decompression's ok flags the oracle's. The
+and the verdict's bool equal, and the sharded verdict's combined point too;
+MSM results and the combined point also equal the RFC 8032 oracle by
+compressed encoding, and the decompression's ok flags the oracle's. A mesh
+of the one card repeated verifies as the unsharded path does. The
 SHA-512 kernel's digests equal its plain version's and ``hashlib``'s byte
 for byte.
 """
@@ -27,7 +29,9 @@ from hotstuff_tpu_torch.ops import curve as cv
 from hotstuff_tpu_torch.ops import field as fe
 from hotstuff_tpu_torch.ops import msm_kernels as mk
 from hotstuff_tpu_torch.ops import sha512 as sha
-from tests.torch_inputs import VERDICT_CASES, decompress_inputs, verdict_case
+from hotstuff_tpu_torch.ops import verify
+from hotstuff_tpu_torch.parallel import mesh as pm
+from tests.torch_inputs import VERDICT_CASES, decompress_inputs, tree_case, verdict_case
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +85,59 @@ def test_verdict_matches_plain(cuda, case, m, with_b):
     got = mk.verdict(tok, *tpts)
     assert got.device.type == "cuda" and got.shape == () and got.dtype == torch.bool
     assert bool(got) == bool(mk.verdict_plain(tok, *tpts)) == want
+
+
+@pytest.mark.parametrize("zero_sum", [True, False])
+@pytest.mark.parametrize("with_b", [True, False])
+@pytest.mark.parametrize("d", [1, 3, 8])
+def test_verdict_tree_matches_plain(cuda, d, with_b, zero_sum):
+    a, b, total = tree_case(d, seed=d, with_b=with_b, zero_sum=zero_sum)
+    ta = torch.from_numpy(a).to(cuda)
+    tb = None if b is None else torch.from_numpy(b).to(cuda)
+    ok = torch.ones(5 * d, dtype=torch.bool, device=cuda)
+    before = mk.LAUNCHES["verdict_tree"]
+    verdict, point = mk.verdict_tree(ok, ta, tb)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["verdict_tree"] == before + 1
+    verdict_p, point_p = mk.verdict_tree_plain(ok, ta, tb)
+    assert torch.equal(point, point_p)
+    assert bool(verdict) == bool(verdict_p) == zero_sum
+    assert cv.to_affine_bytes(point) == ref.point_compress(total)
+    ok[-1] = False
+    assert not bool(mk.verdict_tree(ok, ta, tb)[0])
+    none, alone = mk.verdict_tree(None, ta, tb)
+    assert none is None and torch.equal(alone, point_p)
+
+
+def test_verdict_tree_refuses_more_than_64_shards(cuda):
+    a = torch.zeros((mk.MAX_SHARDS + 1, 4, 20), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mk.verdict_tree(None, a)
+
+
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_sharded_verify_on_one_card(cuda, d):
+    """A mesh of ``cuda:0`` repeated: the sharded verdict equals the
+    unsharded one on a valid and a tampered batch, with exactly
+    decompress d, K2 2d, K3 2d and one ``verdict_tree`` a warm cached QC."""
+    rng = random.Random(9)
+    seeds = [rng.randbytes(32) for _ in range(7)]
+    digest = crypto.sha512_digest(b"shards")
+    pubs = [ref.secret_to_public(s) for s in seeds]
+    sigs = [ref.sign(s, digest.data) for s in seeds]
+    msgs = [digest.data] * 7
+    mesh = pm.make_mesh(devices=[torch.device("cuda", 0)] * d)
+    cache = verify.DevicePointCache(device=mesh.devices[0])
+    assert pm.verify_batch_device_cached_sharded(mesh, msgs, pubs, sigs, cache)
+    mk.reset_launches()
+    assert pm.verify_batch_device_cached_sharded(mesh, msgs, pubs, sigs, cache)
+    assert mk.LAUNCHES == {"decompress": d, "sqrt_pow": 0, "msm_partials_signed": 2 * d,
+                           "msm_partials": 0, "msm_combine": 2 * d, "verdict": 0,
+                           "verdict_tree": 1}
+    bad = sigs[:3] + [sigs[3][:4] + bytes([sigs[3][4] ^ 1]) + sigs[3][5:]] + sigs[4:]
+    assert not pm.verify_batch_device_cached_sharded(mesh, msgs, pubs, bad, cache)
+    assert pm.verify_batch_device_sharded(mesh, msgs, pubs, sigs)
+    assert not pm.verify_batch_device_sharded(mesh, msgs, pubs, bad)
 
 
 # below one CTA's lanes; the fresh-R width; a ragged last CTA
@@ -154,7 +211,7 @@ def test_warm_cached_batch_launches_k2_and_k3_twice(cuda):
     backend.verify_batch([digest.data] * 6, pubs, sigs)
     assert mk.LAUNCHES == {
         "decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "msm_combine": 2,
-        "msm_partials": 0, "verdict": 1,
+        "msm_partials": 0, "verdict": 1, "verdict_tree": 0,
     }
 
 
@@ -185,9 +242,12 @@ def test_backend_on_card_accepts_and_rejects(cuda):
     with pytest.raises(crypto.CryptoError):
         backend.verify_batch([digest.data] * 5, pubs, bad)
     CudaBackend(cache=False).verify_batch([digest.data] * 5, pubs, sigs)
-    path = {name: count for name, count in mk.LAUNCHES.items() if name != "sqrt_pow"}
+    path = {name: count for name, count in mk.LAUNCHES.items()
+            if name not in ("sqrt_pow", "verdict_tree")}
     assert all(count > 0 for count in path.values()), mk.LAUNCHES
     assert mk.LAUNCHES["sqrt_pow"] == 0  # the decompression runs the root itself
+    if torch.cuda.device_count() == 1:
+        assert mk.LAUNCHES["verdict_tree"] == 0  # one card: no mesh, no sharded verdict
 
 
 def test_sha512_matches_plain_and_hashlib(cuda):

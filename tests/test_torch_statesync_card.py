@@ -77,7 +77,8 @@ def test_snapshot_verifies_on_the_card_in_two_inner_calls(cuda):
     torch.cuda.synchronize()
     assert cuda.inner_calls - calls == 2
     assert dict(mk.LAUNCHES) == {"decompress": 2, "sqrt_pow": 0, "msm_partials_signed": 4,
-                                 "msm_partials": 0, "msm_combine": 4, "verdict": 2}
+                                 "msm_partials": 0, "msm_combine": 4, "verdict": 2,
+                                 "verdict_tree": 0}
 
 
 def test_snapshot_with_a_flipped_vote_byte_is_rejected_on_the_card(cuda):

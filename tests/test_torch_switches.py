@@ -10,6 +10,10 @@ reference's, on the CPU.
 - ``HOTSTUFF_TPU_CACHE``: ``0``, ``false`` or ``no`` gives an uncached
   ``CudaBackend``, as in the reference's ``TpuBackend``; an explicit
   ``cache=`` argument wins over the variable.
+- ``HOTSTUFF_TPU_SHARDED``: under the same value both backends build a mesh
+  of the same size or none. The reference's ``TpuBackend`` sees the
+  conftest's 8 virtual CPU devices; the port's ``visible_devices`` is
+  patched to 8 ``cpu`` entries. An explicit ``sharded=`` argument wins.
 """
 
 import pytest
@@ -20,6 +24,7 @@ import hotstuff_tpu.crypto.batching as j_batching
 import hotstuff_tpu_torch.crypto as t_crypto
 import hotstuff_tpu_torch.crypto.batching as t_batching
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
+from hotstuff_tpu_torch.parallel import mesh as pm
 
 
 @pytest.fixture(autouse=True)
@@ -28,6 +33,7 @@ def fresh(monkeypatch):
     monkeypatch.setattr(j_crypto, "_BACKEND", None)
     monkeypatch.delenv("HOTSTUFF_CRYPTO_BACKEND", raising=False)
     monkeypatch.delenv("HOTSTUFF_TPU_CACHE", raising=False)
+    monkeypatch.delenv("HOTSTUFF_TPU_SHARDED", raising=False)
 
 
 def kind(backend, batching_cls, cpu_cls) -> str:
@@ -78,3 +84,35 @@ def test_explicit_cache_argument_wins(monkeypatch):
     assert CudaBackend(device="cpu", cache=True)._cache is not None
     monkeypatch.setenv("HOTSTUFF_TPU_CACHE", "1")
     assert CudaBackend(device="cpu", cache=False)._cache is None
+
+
+@pytest.fixture
+def eight_devices(monkeypatch):
+    """Both packages see 8 devices; neither builds a point cache."""
+    monkeypatch.setenv("HOTSTUFF_TPU_CACHE", "0")
+    monkeypatch.setattr(pm, "visible_devices",
+                        lambda device_type="cuda": [torch.device(device_type)] * 8)
+
+
+def mesh_sizes(**kwargs):
+    from hotstuff_tpu.crypto.tpu_backend import TpuBackend
+
+    reference = TpuBackend(**kwargs)._mesh
+    port = CudaBackend(device="cpu", **kwargs)._mesh
+    return (None if reference is None else int(reference.devices.size),
+            None if port is None else port.size)
+
+
+@pytest.mark.parametrize("value, size", [(None, 8), ("auto", 8), ("0", None), ("false", None),
+                                         ("no", None), ("1", 8), ("yes", 8), ("true", 8)])
+def test_tpu_sharded_switch(monkeypatch, eight_devices, value, size):
+    if value is not None:
+        monkeypatch.setenv("HOTSTUFF_TPU_SHARDED", value)
+    assert mesh_sizes() == (size, size)
+
+
+@pytest.mark.parametrize("value, sharded", [("0", True), ("1", False)])
+def test_explicit_sharded_argument_wins(monkeypatch, eight_devices, value, sharded):
+    monkeypatch.setenv("HOTSTUFF_TPU_SHARDED", value)
+    size = 8 if sharded else None
+    assert mesh_sizes(sharded=sharded) == (size, size)

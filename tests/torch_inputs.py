@@ -89,3 +89,20 @@ def verdict_case(name: str, m: int, seed: int = 9):
         ok[-1] = False
     want = name in ("a+b=O", "a+b torsion")
     return ok, point_limbs(a), point_limbs(b), point_limbs(ref.point_add(a, b)), want
+
+
+def tree_case(d: int, seed: int, with_b: bool, zero_sum: bool):
+    """Shard results for the sharded verdict, multiples of the base point
+    from a seed: (a int32 [d, 4, 20], b the same or None, their oracle sum).
+    With ``zero_sum`` the last point cancels the others, so the sum is the
+    identity and the verdict accepts."""
+    rng = random.Random(seed)
+    pts = [ref.point_mul(rng.getrandbits(250), ref.G) for _ in range(2 * d if with_b else d)]
+    total = ref.IDENTITY
+    for p in pts[:-1]:
+        total = ref.point_add(total, p)
+    if zero_sum:
+        pts[-1] = _neg(total)
+    total = ref.point_add(total, pts[-1])
+    arr = np.stack([point_limbs(p) for p in pts])
+    return arr[:d], (arr[d:] if with_b else None), total
