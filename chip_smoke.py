@@ -72,7 +72,9 @@ unguarded (any failure ends the run with a non-zero exit):
       ``CudaBackend``, the fused flush (ms, µs/sig) against its four QCs
       one by one and against the inner calls of the four pooled v2 QCs,
       the widest flush, the TC verify, the v2 decode of the proposal, and
-      the serial ``CpuBackend`` on one QC on the card's host;
+      on one QC on the card's host the serial ``CpuBackend(use_rlc=False)``
+      beside the default ``CpuBackend()`` (its native RLC engine, which
+      must be built);
 9. the consensus engine on the card: an in-process committee of N = 100
    port engines (``Consensus.spawn``) on 127.0.0.1, keys from ``--seed``,
    stake 1 each (quorum 67), ``timeout_delay`` 30 s, batched vote
@@ -85,8 +87,9 @@ unguarded (any failure ends the run with a non-zero exit):
    must launch, K4 must not), with ``BatchingBackend``'s inner calls,
    requests and signatures per round. Then 3 rounds under
    ``torch.profiler`` for the card's busy share; then the same committee
-   (keys from ``--seed`` + 1) under the serial ``cpu`` backend as the
-   yardstick; then the cached kernels at the committee's width (one
+   (keys from ``--seed`` + 1) under the serial ``CpuBackend(use_rlc=False)``
+   as the yardstick, and under the default ``CpuBackend()`` (the native RLC
+   engine, the reference's default) beside it; then the cached kernels at the committee's width (one
    N = 100 QC: mf = mc = 128) against their plain versions, limb for limb.
    The soft ``RLIMIT_NOFILE`` is raised to the hard one before the port's
    network package is imported (a full mesh of 100 engines needs about
@@ -240,7 +243,24 @@ unguarded (any failure ends the run with a non-zero exit):
       canonical affine encoding. It prints ms per QC by D beside the
       unsharded calls, in turns (host clock, median of 5; on one card the
       shards run one after another);
-   c. with more than one card visible, 13b over distinct cards.
+   c. with more than one card visible, 13b over distinct cards;
+14. the port's bench (``bench_torch.py``) at its default 1343 signatures
+   (``make_batch``'s seed): the serial ``CpuBackend(use_rlc=False)`` and the
+   native RLC engine (``CpuBackend().engine`` must be ``native-rlc``), then
+   its cached and uncached device paths on the card, the counts zeroed
+   before each and read after. Each path verifies 1 + 4 + 3 x 8 batches
+   (its warm verify, one a pool thread, 3 rounds of 8), every one accepted;
+   the cached path must launch exactly decompress 30 (one more for the
+   committee keys entering its cache), K2 58, K3 58, verdict 29 and nothing
+   else, the uncached exactly decompress 29, K4 29, K3 29, verdict 29. It
+   prints the bench's JSON line (not as the last line), stamped with the
+   card, which must be the one of phase 1, each path's host prep alone
+   (``prepare_batch_cached`` and ``prepare_batch`` on one thread, host
+   clock, median of 5), then the kernels against their
+   plain versions at the bench's widths, limb for limb and timed as in
+   phase 5: K1 over the fresh R lanes (mf = 2048) and over every uncached
+   lane (m = 4096), K2 + K3 at [2048] x 33 and x 64, K4 + K3 at [4096] x
+   64, the verdict and the root alone.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -255,7 +275,10 @@ verified the snapshot's two QCs in that window, and the ``rejoin_*`` keys at
 phase 12's widest width; ``launches_sharded`` from phase 13b, which is also
 ``verdict_tree``'s ``launches``, since only the sharded path reaches it; its
 row's times at 8 shards with both MSMs' results, and its
-``sharded_ms_per_qc`` by D (cached, uncached) beside ``unsharded_ms_per_qc``)
+``sharded_ms_per_qc`` by D (cached, uncached) beside ``unsharded_ms_per_qc``;
+``launches_bench_cached`` and ``launches_bench_uncached`` from phase 14's two
+runs, and its ``bench_*`` keys at the bench's widths, the decompression's
+``bench_uncached_*`` at every uncached lane)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -279,6 +302,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -302,6 +326,7 @@ FD_LIMITS = raise_fd_limit()
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import bench_torch  # noqa: E402
 from hotstuff_tpu_torch import crypto  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
@@ -409,11 +434,12 @@ COMMITTEE_N = 100
 COMMITTEE_ROUNDS = 10
 COMMITTEE_TRACED_ROUNDS = 3
 COMMITTEE_TIMEOUT_MS = 30_000
-# Base ports of the card's committee and the CPU yardstick's: below the
-# ephemeral ranges of the hosts it ran on (Linux's default 32768-60999, and
-# 16000-65535 on an H100 host), so that no outgoing connection of an
-# engine spawned earlier holds a later engine's port.
-COMMITTEE_PORTS = (10000, 10200)
+# Base ports of the card's committee and the CPU yardsticks' (serial, then
+# the RLC engine): below the ephemeral ranges of the hosts it ran on
+# (Linux's default 32768-60999, and 16000-65535 on an H100 host), so that no
+# outgoing connection of an engine spawned earlier holds a later engine's
+# port.
+COMMITTEE_PORTS = (10000, 10200, 10100)
 # Seconds allowed for the first commit everywhere, and for each round after.
 COMMITTEE_BOOT_S, COMMITTEE_ROUND_S = 75.0, 20.0
 PHASE9_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
@@ -734,9 +760,11 @@ def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = Tr
         notes.append(f"decompress y [{m}, 20]: grid {grid} x {threads} threads, "
                      f"{usage_note('decompress')}; {ms:.4f} ms (events {ev:.4f}, profiler {pr:.4f}; "
                      f"plain {plain:.1f} ms, bound {b:.4f} ms)")
-        if m == mf:  # the JSON row: the cached QC's shape, one launch a QC
-            rows["decompress"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                                      bound_by=by, shape=f"y [{m}, 20]")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                   shape=f"y [{m}, 20]")
+        # The JSON row: the cached QC's shape, one launch a QC; the uncached
+        # batch's beside it.
+        rows["decompress" if m == mf else "decompress_uncached"] = row
 
     # The root alone, off the path since the decompression took it in.
     if uncached:
@@ -1156,7 +1184,7 @@ def node_path(keys, committee, qcs, seed: int):
 
     # e. Numbers. A lone QC through the wrapper against the direct backend
     # (the flusher's handoff), in turns; the fused flush against its four
-    # QCs one by one; the serial CPU backend on the same QC.
+    # QCs one by one; the serial and the RLC CPU backends on the same QC.
     lone = {"batched": [], "direct": []}
     for _ in range(5):
         for name, backend in (("direct", cuda), ("batched", batched)):
@@ -1168,9 +1196,11 @@ def node_path(keys, committee, qcs, seed: int):
     crypto.set_backend(cuda)
     numbers["four_alone_ms"] = median_ms(lambda: [q.verify(committee) for q in four], 3,
                                          before=cert_arena.reset)
-    crypto.set_backend(crypto.CpuBackend())
-    numbers["cpu_qc_ms"] = median_ms(lambda: qcs[0].verify(committee), 3,
-                                     before=cert_arena.reset)
+    for key, cpu in (("cpu_qc_ms", crypto.CpuBackend(use_rlc=False)),
+                     ("cpu_rlc_qc_ms", crypto.CpuBackend())):
+        crypto.set_backend(cpu)
+        numbers[key] = median_ms(lambda: qcs[0].verify(committee), 3, before=cert_arena.reset)
+    check(cpu.engine == "native-rlc", f"CpuBackend's engine is {cpu.engine!r}, not native-rlc")
     crypto.set_backend(batched)
     numbers["fused_sigs"] = len(fused_batch[0])
     return phase_launches, numbers, fused_batch, batched
@@ -1328,15 +1358,21 @@ def committee_phase(seed: int, card: str, device, imad_per_s: float):
           f"{100 * (1 - gpu['traced_busy_ms'] / gpu['traced_wall_ms']):.2f}%), "
           f"{gpu['traced_device_ops']:.0f} device ops per round")
 
-    # The yardstick: the same committee shape under the serial CPU backend.
-    crypto.set_backend("cpu")
-    cert_arena.reset()
-    t = time.perf_counter()
-    cpu = asyncio.run(committee(COMMITTEE_N, seed + 1, COMMITTEE_PORTS[1], COMMITTEE_ROUNDS))
-    print(f"committee on the card's host, serial CpuBackend (signer: "
-          f"{'OpenSSL' if crypto._HAVE_PYCA else 'pure-Python RFC 8032'}): first commit after "
-          f"{cpu['boot_s']:.2f} s, {r} rounds {cpu['ms_per_round']:.2f} ms per committed round, "
-          f"{1e3 / cpu['ms_per_round']:.3f} rounds/s; phase {time.perf_counter() - t:.1f} s")
+    # The yardsticks: the same committee shape under the serial CPU backend,
+    # then under the default one (the native RLC engine).
+    for label, use_rlc, port, engine in (
+            ("CpuBackend(use_rlc=False)", False, COMMITTEE_PORTS[1], "serial"),
+            ("CpuBackend()", True, COMMITTEE_PORTS[2], "native-rlc")):
+        backend = crypto.CpuBackend(use_rlc=use_rlc)
+        check(backend.engine == engine, f"{label}'s engine is {backend.engine!r}, not {engine}")
+        crypto.set_backend(backend)
+        cert_arena.reset()
+        t = time.perf_counter()
+        cpu = asyncio.run(committee(COMMITTEE_N, seed + 1, port, COMMITTEE_ROUNDS))
+        print(f"committee on the card's host, {label}, engine {engine} (signer: "
+              f"{'OpenSSL' if crypto._HAVE_PYCA else 'pure-Python RFC 8032'}): first commit after "
+              f"{cpu['boot_s']:.2f} s, {r} rounds {cpu['ms_per_round']:.2f} ms per committed round, "
+              f"{1e3 / cpu['ms_per_round']:.3f} rounds/s; phase {time.perf_counter() - t:.1f} s")
     crypto.set_backend(batched)
 
     # The cached kernels at the committee's width: one N = 100 QC.
@@ -2953,6 +2989,75 @@ def mesh_phase(qcs, lead, card: str, imad_per_s: float):
     return run, tree_row
 
 
+# -- phase 14: the port's bench ------------------------------------------------
+
+
+def bench_phase(card: str, device, imad_per_s: float):
+    """Phase 14. Returns (the cached run's launches, the uncached run's, the
+    kernel rows at the bench's widths)."""
+    t = time.perf_counter()
+    n = bench_torch.DEFAULT_SIGS
+    engine = crypto.CpuBackend().engine
+    check(engine == "native-rlc", f"CpuBackend's engine is {engine!r}, not native-rlc")
+    msgs, pubs, sigs = bench_torch.make_batch(n)
+    made_s = time.perf_counter() - t
+    cpu_s = bench_torch.bench_cpu(msgs, pubs, sigs)
+    cpu_batch_s = bench_torch.bench_cpu_batch(msgs, pubs, sigs)
+    # Each run verifies its warm batch, one a pool thread, then the rounds'.
+    feed = dict(iters=bench_torch.ITERS, threads=bench_torch.THREADS, rounds=bench_torch.ROUNDS)
+    batches = 1 + feed["threads"] + feed["rounds"] * feed["iters"]
+    reset_launches()
+    dev_s = bench_torch.bench_device_cached(msgs, pubs, sigs, device=device, **feed)
+    cached = launch_counts()
+    reset_launches()
+    cold_s = bench_torch.bench_device(msgs, pubs, sigs, device=device, **feed)
+    uncached = launch_counts()
+    zeros = dict.fromkeys(cached, 0)
+    # The cached run's first verify also decompresses the n committee keys
+    # into its cache: one launch more of K1.
+    want_cached = {**zeros, "decompress": batches + 1, "msm_partials_signed": 2 * batches,
+                   "msm_combine": 2 * batches, "verdict": batches}
+    want_uncached = {**zeros, "decompress": batches, "msm_partials": batches,
+                     "msm_combine": batches, "verdict": batches}
+    check(cached == want_cached, f"the bench's cached path launched {cached}, expected {want_cached}")
+    check(uncached == want_uncached,
+          f"the bench's uncached path launched {uncached}, expected {want_uncached}")
+    result = bench_torch.result_line(n, cpu_s, cpu_batch_s, dev_s, cold_s, engine)
+    check(result["card"] == card, f"the bench stamped {result['card']!r}, the card is {card!r}")
+    print(json.dumps(result))
+    print(f"bench on {card}: {n} signatures made in {made_s:.1f} s; cached {result['value']} "
+          f"us/sig, uncached {result['device_cold_us']} us/sig, serial CPU "
+          f"{result['cpu_serial_us']} us/sig, native RLC CPU {result['cpu_batch_us']} us/sig; "
+          f"{batches} batches a path; launches "
+          f"cached {cached}, uncached {uncached}; bench in {time.perf_counter() - t:.1f} s")
+
+    # Each path's host prep alone, on one thread (the pool shares the GIL).
+    cache = ov.DevicePointCache(device=device)
+    check(cache.ensure(pubs), "a bench key failed to decompress")
+    prep_ms = {}
+    for path, prep in (("cached", lambda: ov.prepare_batch_cached(msgs, pubs, sigs, cache)),
+                       ("uncached", lambda: ov.prepare_batch(msgs, pubs, sigs))):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            prep()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prep_ms[path] = float(np.median(times))
+    print(f"bench host prep alone on the card's host (one thread, host clock, median of 5): "
+          f"cached {prep_ms['cached']:.2f} ms, uncached {prep_ms['uncached']:.2f} ms a batch of {n}")
+
+    # The kernels against their plain versions at the bench's widths.
+    t = time.perf_counter()
+    rows, notes, shapes = kernel_checks((msgs, pubs, sigs), types.SimpleNamespace(_cache=cache),
+                                        device, imad_per_s)
+    check(shapes == (2048, 2048, 4096), f"the bench's batch ran at mf, mc, m = {shapes}")
+    print(f"kernels vs plain on the card at the bench's widths (limb-exact), {n} signatures, "
+          f"mf={shapes[0]} mc={shapes[1]} uncached m={shapes[2]}, in {time.perf_counter() - t:.1f} s:")
+    for line in notes:
+        print("  " + line)
+    return cached, uncached, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3063,10 +3168,12 @@ def main() -> int:
     print(f"node path numbers on {card}: TC verify (N={VALIDATORS}, {n_sigs} per-voter digests) "
           f"{nb['tc_ms']:.2f} ms (median of 5); v2 decode of the proposal frame "
           f"{nb['decode_ms']:.3f} ms (median of 20)")
-    print(f"node path numbers on {card}: CpuBackend (serial, signer: "
-          f"{'OpenSSL' if crypto._HAVE_PYCA else 'pure-Python RFC 8032'}) on one QC of {n_sigs} "
-          f"signatures on the card's host {nb['cpu_qc_ms']:.2f} ms, "
-          f"{nb['cpu_qc_ms'] * 1e3 / n_sigs:.1f} us/sig (median of 3)")
+    print(f"node path numbers on {card}: on one QC of {n_sigs} signatures on the card's host, "
+          f"CpuBackend(use_rlc=False) (serial, signer: "
+          f"{'OpenSSL' if crypto._HAVE_PYCA else 'pure-Python RFC 8032'}) {nb['cpu_qc_ms']:.2f} ms, "
+          f"{nb['cpu_qc_ms'] * 1e3 / n_sigs:.1f} us/sig; CpuBackend() (engine native-rlc) "
+          f"{nb['cpu_rlc_qc_ms']:.2f} ms, {nb['cpu_rlc_qc_ms'] * 1e3 / n_sigs:.1f} us/sig "
+          f"(median of 3 each)")
 
     # 8d. the kernels at the fused flush's width
     fused_rows, fused_notes, fused_shapes = kernel_checks(fused_batch, cuda, device, imad_per_s,
@@ -3122,6 +3229,10 @@ def main() -> int:
     # The sharded runs are the tree kernel's path; phase 3 never reaches it.
     launches["verdict_tree"] = sharded_launches_["verdict_tree"]
 
+    # 14. the port's bench: its cached and uncached paths at 1343 signatures,
+    # then the kernels at its widths
+    bench_cached, bench_uncached, bench_rows = bench_phase(card, device, imad_per_s)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict", "verdict_tree"):
@@ -3139,17 +3250,21 @@ def main() -> int:
             "launches_rejoin": rejoin_launches[name],
             "launches_rejoin_snapshot": snapshot_launches[name],
             "launches_sharded": sharded_launches_[name],
+            "launches_bench_cached": bench_cached[name],
+            "launches_bench_uncached": bench_uncached[name],
         }
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
             entry["unsharded_ms_per_qc"] = sharded["unsharded"]
-        for prefix, extra in (("fused", fused_rows), ("widest", wide_rows),
-                              ("committee", committee_rows), ("config1", config1_rows),
-                              ("conveyor", conveyor_rows), ("rejoin", rejoin_rows)):
-            row_x = extra.get(name)
+        for prefix, extra, row_name in (
+                ("fused", fused_rows, name), ("widest", wide_rows, name),
+                ("committee", committee_rows, name), ("config1", config1_rows, name),
+                ("conveyor", conveyor_rows, name), ("rejoin", rejoin_rows, name),
+                ("bench", bench_rows, name), ("bench_uncached", bench_rows, f"{name}_uncached")):
+            row_x = extra.get(row_name)
             if row_x is not None:
-                width = (prefix if prefix in ("committee", "config1", "conveyor", "rejoin")
-                         else f"{prefix} flush")
+                width = (f"{prefix} flush" if prefix in ("fused", "widest")
+                         else prefix.replace("_", " "))
                 entry["shape"] += f"; {width} {row_x['shape']}"
                 entry.update({f"{prefix}_{key}": row_x[key]
                               for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
@@ -3165,6 +3280,8 @@ def main() -> int:
         "launches_rejoin": rejoin_launches["sha512"],
         "launches_rejoin_snapshot": snapshot_launches["sha512"],
         "launches_sharded": sharded_launches_["sha512"],
+        "launches_bench_cached": bench_cached["sha512"],
+        "launches_bench_uncached": bench_uncached["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,7 +19,6 @@ from hotstuff_tpu_torch.crypto import PublicKey, SignatureService
 from hotstuff_tpu_torch.network import MessageHandler, Receiver
 from hotstuff_tpu_torch.store import Store
 from hotstuff_tpu_torch.utils.serde import SerdeError
-from hotstuff_tpu_torch.utils.tasks import log_task_death
 
 from .config import Committee, Parameters
 from .core import Core
@@ -165,9 +164,7 @@ class Consensus:
             statesync=statesync,
             compactor=self.compactor,
         )
-        task = asyncio.create_task(self.core.run(), name="consensus_core")
-        task.add_done_callback(log_task_death)
-        self.tasks.append(task)
+        self.tasks.append(self.core.start())
         self.tasks.append(
             Proposer.spawn(
                 name,

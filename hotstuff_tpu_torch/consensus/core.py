@@ -137,7 +137,10 @@ class Core:
         # the SAME handlers run sans-io.
         self.timer = timer if timer is not None else Timer(timeout_delay)
         self.aggregator = Aggregator(committee)
-        self.network = network if network is not None else SimpleSender()
+        # A sender made here closes when the core's task ends (the
+        # reference's stays open); one passed in stays its owner's.
+        self._sender = SimpleSender() if network is None else None
+        self.network = network if network is not None else self._sender
         # round -> set of known-byzantine vote keys (author||sig||hash);
         # GC'd with the aggregator on round advance.
         self._bad_sigs: dict[Round, set[bytes]] = {}
@@ -169,9 +172,14 @@ class Core:
 
     @classmethod
     def spawn(cls, *args, **kwargs) -> asyncio.Task:
-        self = cls(*args, **kwargs)
+        return cls(*args, **kwargs).start()
+
+    def start(self) -> asyncio.Task:
+        """Run as a task; the sender this core made closes when it ends."""
         task = asyncio.create_task(self.run(), name="consensus_core")
         task.add_done_callback(log_task_death)
+        if self._sender is not None:
+            task.add_done_callback(lambda _: self._sender.shutdown())
         return task
 
     # -- persistence of voting state (the upstream recovery TODO) -----------

@@ -131,4 +131,7 @@ class Helper:
 
         task = asyncio.create_task(run(), name="consensus_helper")
         task.add_done_callback(log_task_death)
+        # Its sender's connections close with the task (the reference's
+        # stay open).
+        task.add_done_callback(lambda _: network.shutdown())
         return task

@@ -48,7 +48,9 @@ class Synchronizer:
         # come from the same clock the simulation plane advances, or
         # sim runs would judge expiry against wall time.
         self._clock = clock
-        self.network = SimpleSender()
+        # The sender it made closes when it stops (the reference's stays
+        # open); a stand-in put in its place is its putter's.
+        self._sender = self.network = SimpleSender()
         self._pending: set[Digest] = set()  # block digests being waited on
         self._requests: dict[Digest, float] = {}  # parent digest -> first-request ts
         # parent digest -> last (re)send ts: a retried request re-arms at
@@ -312,3 +314,4 @@ class Synchronizer:
         self._main.cancel()
         for t in self._tasks:
             t.cancel()
+        self._sender.shutdown()

@@ -5,18 +5,21 @@ Port of ``hotstuff_tpu/crypto/__init__.py`` (reference
 ``generate_keypair``, ``Signature`` (``new``/``verify``/``verify_batch``/
 ``verify_batch_multi``), ``SignatureService``, the dispatch layer
 (``backend_verify_batch``, ``backend_verify_cert``, ``agg_qc_enabled``) and
-the serial ``CpuBackend``. Protocol digests are SHA-512 truncated to 32
-bytes and signatures sign the 32-byte digest.
+``CpuBackend`` with its native RLC engine. Protocol digests are SHA-512
+truncated to 32 bytes and signatures sign the 32-byte digest.
 
 Signing and single verification use the ``cryptography`` package (OpenSSL)
-when it is importable, else the pure-Python oracle ``ed25519_ref``. Batch
-verification — the QC and TC path — goes to the active backend:
-``"cuda"`` (``crypto/cuda_backend.py``, the default), ``"cpu"``, their
-super-batching variants ``"cuda-batched"``/``"cpu-batched"``
-(``crypto/batching.py``), or a backend object; unless one is set, the
-first ``get_backend()`` takes the name from ``HOTSTUFF_CRYPTO_BACKEND``.
-Left in the reference: the opt-in verdict memo and the native C++ RLC
-engine of its ``CpuBackend``.
+when it is importable. Without it, as in the reference, signing runs on
+``ed25519_ref`` with the fixed-base multiplications on the native engine
+(``native_ed25519``), and a strict single verify is the native engine's
+cofactorless 3-point MSM behind a fuser that dedups identical concurrent
+requests; the pure-Python oracle is the last resort. Batch verification —
+the QC and TC path — goes to the active backend: ``"cuda"``
+(``crypto/cuda_backend.py``, the default), ``"cpu"``, their super-batching
+variants ``"cuda-batched"``/``"cpu-batched"`` (``crypto/batching.py``), or
+a backend object; unless one is set, the first ``get_backend()`` takes the
+name from ``HOTSTUFF_CRYPTO_BACKEND``. Left in the reference: the opt-in
+verdict memo and the signer memo of its simulation plane.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ except ImportError:  # the card's host may ship no OpenSSL binding
     InvalidSignature = Ed25519PrivateKey = Ed25519PublicKey = None
     _HAVE_PYCA = False
 
-from . import ed25519_ref
+from . import ed25519_ref, native_ed25519
 
 
 class CryptoError(Exception):
@@ -133,19 +136,35 @@ class PublicKey:
         return self.encode_base64()
 
 
+_NATIVE_SCALARMULT = None  # resolved at first use: a callable, or False
+
+
+def _scalarmult_base(scalar: int) -> bytes:
+    """Compressed ``scalar * B`` for signing without OpenSSL: on the native
+    engine when it builds, else on the oracle (reference
+    ``crypto/__init__.py:110-124``)."""
+    global _NATIVE_SCALARMULT
+    if _NATIVE_SCALARMULT is None:
+        _NATIVE_SCALARMULT = (native_ed25519.scalarmult_base_native
+                              if native_ed25519.native_available() else False)
+    if _NATIVE_SCALARMULT:
+        return _NATIVE_SCALARMULT(scalar)
+    return ed25519_ref.point_compress(ed25519_ref.point_mul(scalar, ed25519_ref.G))
+
+
 @functools.lru_cache(maxsize=4096)  # committees are far smaller
 def _expanded(seed: bytes) -> tuple[int, bytes, bytes]:
     """(clamped scalar, hash prefix, public key) of a seed, for signing
     without OpenSSL (key expansion costs one scalar multiplication)."""
     a, prefix = ed25519_ref.secret_expand(seed)
-    return a, prefix, ed25519_ref.point_compress(ed25519_ref.point_mul(a, ed25519_ref.G))
+    return a, prefix, _scalarmult_base(a)
 
 
 def _sign_ref(seed: bytes, msg: bytes) -> bytes:
-    """RFC 8032 signing on the oracle; byte-identical to OpenSSL's."""
+    """RFC 8032 signing without OpenSSL; byte-identical to OpenSSL's."""
     a, prefix, pub = _expanded(seed)
     r = int.from_bytes(hashlib.sha512(prefix + msg).digest(), "little") % ed25519_ref.L
-    big_r = ed25519_ref.point_compress(ed25519_ref.point_mul(r, ed25519_ref.G))
+    big_r = _scalarmult_base(r)
     k = ed25519_ref.compute_challenge(big_r, pub, msg)
     s = (r + k * a) % ed25519_ref.L
     return big_r + s.to_bytes(32, "little")
@@ -256,7 +275,7 @@ class Signature:
                 )
             except (InvalidSignature, ValueError) as e:
                 raise CryptoError(f"invalid signature: {e}") from e
-        elif not ed25519_ref.verify(public_key.data, digest.data, self.data, strict=True):
+        elif not _verify_single_gated(digest.data, public_key.data, self.data):
             raise CryptoError("invalid signature")
 
     @staticmethod
@@ -281,6 +300,52 @@ class Signature:
             [pk.data for _, pk, _ in items],
             [sig.data for _, _, sig in items],
         )
+
+
+class _StrictSingleBackend:
+    """Inner backend of the strict-single fuser (reference
+    ``crypto/__init__.py:185-205``): verifies each DISTINCT (msg, pub, sig)
+    triple with the native cofactorless 3-point MSM. Strictness is per
+    triple (a random linear combination without cofactor clearing could
+    cancel torsion components), so the fuser's win is the identical-triple
+    dedup: a proposal verified by N in-process validators costs one MSM."""
+
+    name = "cpu-strict-single"
+
+    def verify_batch(self, msgs, pubs, sigs) -> None:
+        for msg, pub, sig in zip(msgs, pubs, sigs):
+            if not native_ed25519.verify_single_strict_native(msg, pub, sig):
+                raise CryptoError("invalid signature")
+
+
+_STRICT_FUSER = None  # BatchingBackend over _StrictSingleBackend, or False
+
+
+def _verify_single_gated(msg: bytes, pub: bytes, sig: bytes) -> bool:
+    """Strict single verification without OpenSSL (reference
+    ``crypto/__init__.py:211-250``, less its memo branch): the cofactorless
+    equation on the native engine, through a fuser that dedups identical
+    concurrent requests (each verdict stays exact: the fuser re-verifies
+    one by one when a fused flush rejects), else the pure-Python strict
+    oracle. The small-order and canonicality rejections run in the
+    caller."""
+    global _STRICT_FUSER
+    if _STRICT_FUSER is None:
+        if native_ed25519.native_available():
+            from .batching import BatchingBackend
+
+            _STRICT_FUSER = BatchingBackend(_StrictSingleBackend())
+        else:
+            _STRICT_FUSER = False
+    if _STRICT_FUSER is False:
+        return ed25519_ref.verify(pub, msg, sig, strict=True)
+    try:
+        _STRICT_FUSER.verify_batch([msg], [pub], [sig])
+        return True
+    except BackendUnavailable:
+        raise
+    except CryptoError:
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -346,20 +411,27 @@ def backend_verify_cert(msgs, pubs, sig_buf, stride: int = 64, key=None) -> None
 
 
 # ---------------------------------------------------------------------------
-# The CPU backend: the serial yardstick.
+# The CPU backend: the native RLC engine, or the serial yardstick.
 # ---------------------------------------------------------------------------
 
 
 class CpuBackend:
-    """CPU batch verification, serial: OpenSSL per signature, with a
-    cofactored re-check on ``ed25519_ref`` for the signatures OpenSSL
-    rejects (reference ``crypto/__init__.py:608-716``, its serial path).
+    """CPU batch verification (reference ``crypto/__init__.py:608-716``):
+    dalek's CPU ``verify_batch``, the bar the card is held against.
 
-    Acceptance is COFACTORED (8sB == 8R + 8hA), the ``CudaBackend``'s set:
-    OpenSSL's cofactorless check accepts a subset of it, and only what
-    OpenSSL rejects pays the slow re-check. ``use_rlc`` does nothing: it is
-    accepted for the reference's signature, and the native RLC engine it
-    selects there stays in the reference.
+    Acceptance is COFACTORED (8sB == 8R + 8hA), the ``CudaBackend``'s set.
+    With ``use_rlc`` (the default) a batch of two or more signatures, or
+    any batch without OpenSSL, goes to the native C++ RLC engine
+    (``native_ed25519.verify_batch_native``, dalek's algorithm), and a
+    packed certificate to its fused check (``verify_cert_native``, one RLC
+    MSM with deterministic coefficients). The engine is built when the
+    backend is constructed, never inside a verify; where g++ cannot build
+    it, the backend stays serial, as the reference's does without its
+    library. ``use_rlc=False`` is the serial path, the bench's serial
+    baseline: OpenSSL's cofactorless check per signature (a subset of the
+    cofactored set), with a cofactored re-check on ``ed25519_ref`` for what
+    OpenSSL rejects. ``engine`` names the path taken: ``"native-rlc"`` or
+    ``"serial"``.
     """
 
     name = "cpu"
@@ -375,6 +447,10 @@ class CpuBackend:
     def __init__(self, use_rlc: bool = True) -> None:
         self._slow_tokens = float(self.SLOW_CHECK_BUDGET)
         self._last_refill = time.monotonic()
+        self._rlc = None
+        if use_rlc and native_ed25519.native_available():
+            self._rlc = native_ed25519.verify_batch_native
+        self.engine = "serial" if self._rlc is None else "native-rlc"
 
     def _take_slow_token(self) -> bool:
         now = time.monotonic()
@@ -392,13 +468,12 @@ class CpuBackend:
     def verify_batch(self, msgs, pubs, sigs) -> None:
         if not len(msgs) == len(pubs) == len(sigs):
             raise CryptoError("batch length mismatch")
-        self._verify_serial(msgs, pubs, sigs)
-
-    def verify_cert(self, msgs, pubs, sig_buf, stride: int = 64, key=None) -> None:
-        """A packed cert, exploded: the acceptance set of its slices."""
-        self._verify_serial(*_explode_cert(msgs, pubs, sig_buf, stride, len(pubs)))
-
-    def _verify_serial(self, msgs, pubs, sigs) -> None:
+        # Without OpenSSL even a batch of one goes to the engine: the
+        # pure-Python loop below costs milliseconds a signature.
+        if self._rlc is not None and (len(msgs) >= 2 or not _HAVE_PYCA):
+            if not self._rlc(msgs, pubs, sigs):
+                raise CryptoError("invalid signature in batch")
+            return
         for msg, pub, sig in zip(msgs, pubs, sigs):
             if not _HAVE_PYCA:
                 if not ed25519_ref.verify(pub, msg, sig, strict=False):
@@ -414,6 +489,16 @@ class CpuBackend:
                     ) from None
                 if not ed25519_ref.verify(pub, msg, sig, strict=False):
                     raise CryptoError("invalid signature in batch") from None
+
+    def verify_cert(self, msgs, pubs, sig_buf, stride: int = 64, key=None) -> None:
+        """Fused certificate verification: one RLC MSM over the cert's
+        packed signature buffer on the native engine, with the acceptance
+        set of its exploded slices; serial, the exploded batch."""
+        if self._rlc is not None:
+            if not native_ed25519.verify_cert_native(msgs, pubs, sig_buf, stride):
+                raise CryptoError("invalid signature in certificate")
+            return
+        self.verify_batch(*_explode_cert(msgs, pubs, sig_buf, stride, len(pubs)))
 
 
 _BACKEND = None

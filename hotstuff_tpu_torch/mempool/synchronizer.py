@@ -65,7 +65,9 @@ class Synchronizer:
         self.rx_message = rx_message
         # Injectable clock: retry expiry is judged without sleeping.
         self._clock = clock
-        self.network = SimpleSender()
+        # The sender it made closes when it stops (the reference's stays
+        # open); a stand-in put in its place is its putter's.
+        self._sender = self.network = SimpleSender()
         self.round = 0
         # digest -> (round registered, waiter task, last request time)
         self.pending: dict[Digest, tuple[int, asyncio.Task, float]] = {}
@@ -73,7 +75,9 @@ class Synchronizer:
     @classmethod
     def spawn(cls, *args, **kwargs) -> asyncio.Task:
         self = cls(*args, **kwargs)
-        return asyncio.create_task(self._run(), name="mempool_synchronizer")
+        task = asyncio.create_task(self._run(), name="mempool_synchronizer")
+        task.add_done_callback(lambda _: self._sender.shutdown())
+        return task
 
     async def _waiter(self, digest: Digest) -> None:
         await self.store.notify_read(digest.data)

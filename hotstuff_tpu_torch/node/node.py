@@ -22,7 +22,7 @@ import asyncio
 import logging
 
 from hotstuff_tpu_torch.consensus import Consensus
-from hotstuff_tpu_torch.crypto import SignatureService
+from hotstuff_tpu_torch.crypto import SignatureService, get_backend
 from hotstuff_tpu_torch.mempool import Mempool
 from hotstuff_tpu_torch.mempool.dataplane import CommitResolver
 from hotstuff_tpu_torch.store import Store
@@ -68,6 +68,9 @@ class Node:
             Parameters.read(parameters_file) if parameters_file else Parameters.default()
         )
         self.name = secret.name
+        # The certificate path's backend is made at boot, not at the first
+        # verify: a CpuBackend builds its native engine when it is made.
+        get_backend()
         self.store = Store(store_path)
         self._boot = (secret, committee, parameters, benchmark, device)
         await self._spawn()

@@ -37,6 +37,8 @@ it launches its kernel and nowhere else.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import curve as cv
@@ -46,6 +48,9 @@ LAUNCHES = {
     "decompress": 0, "sqrt_pow": 0, "msm_partials_signed": 0, "msm_partials": 0,
     "msm_combine": 0, "verdict": 0, "verdict_tree": 0,
 }
+# Threads launch at once (the bench's pool, the crypto bridge's workers), and
+# ``+=`` on a dict entry is not atomic.
+_count_lock = threading.Lock()
 
 # Lanes per CTA (one thread per lane) of sqrt_pow and of the partials kernels;
 # the combine then sums m / block partials per window. ``block`` arguments
@@ -109,7 +114,8 @@ def _launch(source: str, fn: str, counter: str, device: torch.device, *args) -> 
         rc = kernel(source, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")
-    LAUNCHES[counter] += 1
+    with _count_lock:
+        LAUNCHES[counter] += 1
 
 
 # -- K1: decompression -------------------------------------------------------

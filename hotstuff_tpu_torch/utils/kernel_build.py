@@ -6,7 +6,8 @@ sources compile in parallel, one ``nvcc`` each. The output goes to
 ``hotstuff_tpu_torch/_build/<key>/``, where the key hashes the sources, the
 flags and the card's compute capability, so a library built for other
 sources or another card is never loaded. (The JAX package's counterpart is
-its compile cache, ``hotstuff_tpu/utils/jaxcache.py``.)
+its compile cache, ``hotstuff_tpu/utils/jaxcache.py``.) Host C++, the native
+Ed25519 engine, builds here too, with ``g++`` (``build_native``).
 """
 
 from __future__ import annotations
@@ -129,3 +130,43 @@ def load_all() -> dict[str, ctypes.CDLL]:
 def kernel(source_stem: str, fn_name: str):
     """The C entry point ``fn_name`` of ``csrc/<source_stem>.cu``."""
     return getattr(load_all()[source_stem], fn_name)
+
+
+# Host C++ (the native engines) builds with g++ beside the CUDA libraries,
+# keyed by its source and these flags.
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+_native_lock = threading.Lock()
+
+
+def native_path(source: Path) -> Path:
+    """Where ``build_native`` puts the library of ``source``:
+    ``_build/native-<key>/lib<stem>.so``."""
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / f"lib{source.stem}.so"
+
+
+def build_native(source: Path) -> Path:
+    """Build the host C++ ``source`` with g++ unless its library is there,
+    and return the library's path (``native_path``). Processes may build at
+    once (tier-1 runs several workers): each compiles to a name of its own
+    and renames it into place, so a reader never sees a half-written
+    library. Raises ``KernelBuildError`` when g++ is missing or refuses the
+    source."""
+    target = native_path(source)
+    out_dir = target.parent
+    with _native_lock:
+        if target.exists():
+            return target
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise KernelBuildError("g++ not found: the native engine cannot be built")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"lib{source.stem}.{os.getpid()}.tmp.so"
+        proc = subprocess.run([gxx, *GXX_FLAGS, str(source), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(f"g++ failed on {source.name}:\n{proc.stderr}")
+        os.replace(tmp, target)
+        return target

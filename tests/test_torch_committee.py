@@ -26,8 +26,12 @@ import hotstuff_tpu_torch.consensus as t_consensus
 import hotstuff_tpu_torch.crypto as t_crypto
 import hotstuff_tpu_torch.store as t_store
 from hotstuff_tpu_torch.consensus import cert_arena
+from hotstuff_tpu_torch.consensus import core as t_core
+from hotstuff_tpu_torch.consensus import helper as t_helper
+from hotstuff_tpu_torch.consensus import synchronizer as t_synchronizer
 from hotstuff_tpu_torch.crypto.batching import BatchingBackend
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
+from hotstuff_tpu_torch.network import SimpleSender
 
 from .common import async_test
 
@@ -108,6 +112,41 @@ async def test_end_to_end_four_port_engines():
     agree(rounds)
     for e in engines:
         assert e.core.blocks_committed >= 4 and e.core.timeouts_fired == 0
+
+
+@async_test
+async def test_stopped_engines_keep_no_simple_sender_connection(monkeypatch):
+    """Each engine's core, helper and synchronizer ``SimpleSender`` holds a
+    connection (each opens one to a listener that keeps it) while four
+    port engines commit; once they are shut down, none is left. The
+    reference's stay open."""
+    made = []
+    hold_port = BASE + 80
+
+    class Opened(SimpleSender):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+            self.send(("127.0.0.1", hold_port), b"open")
+
+    async def hold(reader, writer):
+        while await reader.read(1 << 16):
+            pass
+        writer.close()
+
+    for module in (t_core, t_helper, t_synchronizer):
+        monkeypatch.setattr(module, "SimpleSender", Opened)
+    server = await asyncio.start_server(hold, "127.0.0.1", hold_port)
+    try:
+        rounds, _ = await run_committee(BASE + 70, ["port"] * 4, blocks=2)
+        agree(rounds)
+        await asyncio.sleep(0.1)
+    finally:
+        server.close()
+    assert len(made) == 12
+    assert all(not sender._connections for sender in made)
+    assert [t for t in asyncio.all_tasks()
+            if t.get_coro().cr_code.co_filename.endswith("simple_sender.py")] == []
 
 
 @async_test

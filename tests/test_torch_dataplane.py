@@ -577,6 +577,18 @@ async def test_worker_shutdown_closes_its_senders():
         s.close()
 
 
+def test_card_committee_binds_below_the_hosts_ephemeral_range():
+    """The card test's committee (four nodes with two workers each, seven
+    ports a node in ``benchmark/local.py``'s layout) binds below the H100
+    host's ephemeral range (16000-65535), where an earlier engine's
+    outgoing connection may hold a port, and clear of ``chip_smoke.py``'s
+    phases (10000-10599) and the bench's range (10600-10699)."""
+    from . import test_torch_dataplane_card as card
+
+    ports = range(card.BASE, card.BASE + 7 * 4)
+    assert min(ports) >= 10700 and max(ports) < 16000
+
+
 # -- commit-path resolution --------------------------------------------------
 
 

@@ -5,7 +5,9 @@ K2, K3 and the verdict; K4 must not launch.
 
 Needs a CUDA card with nvcc (``cuda`` marker; it skips without one).
 Imports neither JAX nor the JAX package, so it runs on a host without
-them. Ports 22322-22349.
+them. Ports 10700-10727: below the H100 host's ephemeral range (16000-65535),
+where an earlier engine's outgoing connection could hold one, and clear of
+``chip_smoke.py``'s (10000-10599) and the bench's (10600-10699).
 """
 
 import asyncio
@@ -30,7 +32,7 @@ from hotstuff_tpu_torch.node import Parameters as NodeParameters
 from hotstuff_tpu_torch.ops import msm_kernels as mk
 
 pytestmark = pytest.mark.cuda
-BASE = 22322
+BASE = 10700
 
 
 @pytest.fixture

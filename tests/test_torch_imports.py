@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``hotstuff_tpu_torch`` module
 loads neither ``jax`` nor any module of the JAX package, ``chip_smoke.py``
-imports neither, and the port's entry points, called without ``device`` on
-a host without CUDA, raise instead of running on the CPU. Checked in a
+and ``bench_torch.py`` import neither (nor the reference's ``benchmark``
+package), and the port's entry points, called without ``device`` on a host
+without CUDA, raise instead of running on the CPU. Checked in a
 fresh interpreter, since this test process itself imports the JAX
 package."""
 
@@ -21,10 +22,14 @@ import hotstuff_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(hotstuff_tpu_torch.__path__, "hotstuff_tpu_torch."))
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "hotstuff_tpu" or m.startswith("hotstuff_tpu."))
+
+def leaked():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "hotstuff_tpu", "benchmark"))
+
 
 import torch
+import bench_torch
 from hotstuff_tpu_torch import crypto
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
 from hotstuff_tpu_torch.ops import sha512, verify
@@ -39,13 +44,15 @@ if not torch.cuda.is_available():
         ("set_backend cuda-batched", lambda: crypto.set_backend("cuda-batched")),
         ("sha512_batch", lambda: sha512.sha512_batch([b"m"])),
         ("make_mesh", make_mesh),
+        ("bench_device_cached", lambda: bench_torch.bench_device_cached([b"m"], [b"k" * 32], [b"s" * 64])),
+        ("bench_device", lambda: bench_torch.bench_device([b"m"], [b"k" * 32], [b"s" * 64])),
     ]:
         try:
             call()
             raised[what] = None
         except RuntimeError as e:
             raised[what] = str(e)
-print(json.dumps({"modules": names, "leaked": leaked, "cuda": torch.cuda.is_available(), "raised": raised}))
+print(json.dumps({"modules": names, "leaked": leaked(), "cuda": torch.cuda.is_available(), "raised": raised}))
 """
 
 
@@ -74,7 +81,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "utils.logging", "ops.sha512", "mempool", "mempool.messages", "mempool.config",
                  "mempool.batch_maker", "mempool.quorum_waiter", "mempool.processor",
                  "mempool.helper", "mempool.mempool", "node", "node.config", "node.node",
-                 "node.__main__", "node.client", "parallel", "parallel.mesh"):
+                 "node.__main__", "node.client", "parallel", "parallel.mesh",
+                 "crypto.native_ed25519", "crypto.cpu_batch"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
@@ -82,17 +90,28 @@ def test_port_imports_no_jax_and_no_reference_module():
             assert message is not None and "CUDA" in message, what
 
 
-def test_chip_smoke_imports_no_jax_and_no_reference_module():
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def imported_by(script: str) -> set[str]:
     imported = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse((REPO / script).read_text())):
         if isinstance(node, ast.Import):
             imported.update(alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom):
             imported.add(node.module or "")
+    return imported
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_module():
+    imported = imported_by("chip_smoke.py")
+    top = {name.split(".")[0] for name in imported}
+    assert "hotstuff_tpu_torch" in top and "bench_torch" in top
+    assert not top & {"jax", "jaxlib", "hotstuff_tpu", "benchmark", "bench"}, sorted(imported)
+
+
+def test_bench_torch_imports_no_jax_and_no_reference_module():
+    imported = imported_by("bench_torch.py")
     top = {name.split(".")[0] for name in imported}
     assert "hotstuff_tpu_torch" in top
-    assert not top & {"jax", "jaxlib", "hotstuff_tpu"}, sorted(imported)
+    assert not top & {"jax", "jaxlib", "hotstuff_tpu", "benchmark", "bench"}, sorted(imported)
 
 
 def test_kernel_times_runs_as_a_script_without_a_card():

@@ -220,6 +220,42 @@ async def test_synchronizer_emits_batch_request():
 
 
 @async_test
+async def test_stopped_synchronizer_closes_its_sender(monkeypatch):
+    """Its ``SimpleSender`` keeps a connection to a peer that holds it
+    open; once the task stops, none is left (the reference's stays open)."""
+    made = []
+
+    class Recorded(sync_mod.SimpleSender):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    async def hold(reader, writer):
+        while await reader.read(1 << 16):
+            pass
+        writer.close()
+
+    monkeypatch.setattr(sync_mod, "SimpleSender", Recorded)
+    committee = mempool_committee(BASE + 44)
+    (name, _), (target, _) = keys()[0], keys()[1]
+    server = await asyncio.start_server(hold, *committee.mempool_address(target))
+    rx_msg = asyncio.Queue()
+    task = Synchronizer.spawn(name, committee, Store(), 50, 5_000, 3, rx_msg)
+    await rx_msg.put(Synchronize([sha512_digest(b"missing-batch")], target))
+    for _ in range(100):
+        await asyncio.sleep(0.01)
+        if made and made[0]._connections:
+            break
+    assert made and made[0]._connections, "no request went out"
+    task.cancel()
+    await asyncio.sleep(0.1)
+    assert not made[0]._connections
+    assert [t for t in asyncio.all_tasks()
+            if t.get_coro().cr_code.co_filename.endswith("simple_sender.py")] == []
+    server.close()
+
+
+@async_test
 async def test_synchronizer_cleanup_cancels_old_waiters():
     committee = mempool_committee(BASE + 16)
     name, target = keys()[0][0], keys()[1][0]
