@@ -89,8 +89,26 @@ unguarded (any failure ends the run with a non-zero exit):
    ``torch.profiler`` for the card's busy share; then the same committee
    (keys from ``--seed`` + 1) under the serial ``CpuBackend(use_rlc=False)``
    as the yardstick, and under the default ``CpuBackend()`` (the native RLC
-   engine, the reference's default) beside it; then the cached kernels at the committee's width (one
-   N = 100 QC: mf = mc = 128) against their plain versions, limb for limb.
+   engine, the reference's default) beside it; then the card committee of
+   the first run again (ports from 10800) with telemetry on, the engines'
+   per-stage counters (``Consensus.spawn(profile=True)``:
+   ``consensus.stage.<kind>.{ns,calls}``) and a sampling profiler with stage
+   tags at its default 2 ms over the timed rounds, read as the reference's
+   ``benchmark/committee_scale.py`` reads its ``--profile`` run (counter
+   deltas around the rounds). It prints ms per round beside the unprofiled
+   run, each stage's ms and calls a round, their sum as a share of the
+   round's wall time, each stage tag's share of the samples, and the
+   superbatcher's ``flush_ms`` and ``per_sig_ms`` means; it fails unless
+   every stage seen made calls, ``consensus.rounds_advanced`` moved by at
+   least the rounds, ``crypto.dispatch.cuda`` by the verdict's launches (=
+   the superbatcher's inner calls = ``CudaBackend``'s calls),
+   ``crypto.dispatch.cuda_sigs`` by the signatures dispatched, and the
+   profiler's ``hotstuff-profile-v1`` record validates. Telemetry is off in
+   the other runs and is turned off and cleared after this one. In every
+   card run the timed rounds' counts are read between inner calls (a gate
+   each inner call holds). Then the cached kernels at the committee's width
+   (one N = 100 QC: mf = mc = 128) against their plain versions, limb for
+   limb.
    The soft ``RLIMIT_NOFILE`` is raised to the hard one before the port's
    network package is imported (a full mesh of 100 engines needs about
    20,000 descriptors; the connection budget takes 35% of the soft limit);
@@ -143,7 +161,13 @@ unguarded (any failure ends the run with a non-zero exit):
       at every (mf, mc) the window ran them at, each on a batch the path
       verified at that width (a QC of 3 signatures: mf = mc = 4), and the
       digest kernel against its plain version at the widest drain the node
-      path gave it, timed there;
+      path gave it, timed there. Each node streams its telemetry
+      (``HOTSTUFF_TELEMETRY_DIR``, a directory of the run's temporary tree):
+      it fails unless every node's stream passes the port's validator line
+      by line and its final snapshot shows ``consensus.qcs_formed``,
+      ``mempool.batches_sealed`` and ``net.frames_in`` above 0, and prints
+      the committed tx/s the final snapshots give (the harness reader's
+      formula) beside the logs';
 11. the mempool's data plane (Conveyor): the README's configuration at the
    reference sweep's defaults (``README.md:107``,
    ``benchmark/dataplane_sweep.py:150-160``), four port ``Node``s with two
@@ -266,7 +290,8 @@ The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
 others'); ``launches_node_path`` from phase 8, the ``fused_*`` and ``widest_*``
 keys from 8d, ``launches_committee`` and the ``committee_*`` keys from
-phase 9, ``launches_config1`` and the ``config1_*`` keys from phase 10c:
+phase 9, ``launches_committee_profiled`` from its profiled run,
+``launches_config1`` and the ``config1_*`` keys from phase 10c:
 the QC kernels' at its widest width, ``sha512``'s at its widest drain;
 ``launches_conveyor`` and the ``conveyor_*`` keys from phase 11,
 ``launches_rejoin`` from phase 12a's restart to the end of its first install
@@ -297,6 +322,7 @@ import os
 import random
 import resource
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -327,7 +353,7 @@ FD_LIMITS = raise_fd_limit()
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import bench_torch  # noqa: E402
-from hotstuff_tpu_torch import crypto  # noqa: E402
+from hotstuff_tpu_torch import crypto, telemetry  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
@@ -370,6 +396,8 @@ from hotstuff_tpu_torch.ops import sha512 as sha  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
 from hotstuff_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hotstuff_tpu_torch.store import LogEngine, Store  # noqa: E402
+from hotstuff_tpu_torch.telemetry import profiler as pyprof  # noqa: E402
+from hotstuff_tpu_torch.telemetry.validate import validate_stream  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder  # noqa: E402
 from hotstuff_tpu_torch.utils.kernel_times import PROFILER_NAMES, kernel_ms  # noqa: E402
@@ -434,15 +462,19 @@ COMMITTEE_N = 100
 COMMITTEE_ROUNDS = 10
 COMMITTEE_TRACED_ROUNDS = 3
 COMMITTEE_TIMEOUT_MS = 30_000
-# Base ports of the card's committee and the CPU yardsticks' (serial, then
-# the RLC engine): below the ephemeral ranges of the hosts it ran on
+# Base ports of the card's committee, the CPU yardsticks' (serial, then the
+# RLC engine) and the profiled card committee's: below the ephemeral ranges of the hosts it ran on
 # (Linux's default 32768-60999, and 16000-65535 on an H100 host), so that no
 # outgoing connection of an engine spawned earlier holds a later engine's
 # port.
-COMMITTEE_PORTS = (10000, 10200, 10100)
+COMMITTEE_PORTS = (10000, 10200, 10100, 10800)
 # Seconds allowed for the first commit everywhere, and for each round after.
 COMMITTEE_BOOT_S, COMMITTEE_ROUND_S = 75.0, 20.0
 PHASE9_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
+# The profiler's stage tags: the core's stage seeds, the round trace's
+# marks and the crypto bridge's worker tag (reference
+# ``hotstuff_tpu/consensus/core.py:905-922``, ``telemetry/spans.py``).
+STAGE_TAGS = ("ingress", "fanin", "verify", "vote", "view_change", "idle", "other")
 
 # Phase 10a/b: the reference digest test's lengths and the two-block
 # boundary, and the reference digest bench's grid (benchmark/
@@ -1209,13 +1241,18 @@ def node_path(keys, committee, qcs, seed: int):
 # -- phase 9: the consensus engine on the card ----------------------------------
 
 
-async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int = 0) -> dict:
+async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int = 0,
+                    profile: bool = False) -> dict:
     """An in-process committee of ``n`` port engines under the active
     backend, as ``benchmark/committee_scale.py --mode protocol`` of the
     reference runs one. Waits for the first commit on every engine, times
     ``rounds`` more (every engine must commit the same digest each round,
     no timeout may fire, no verification may fail unjudged), then traces
-    ``traced`` rounds with the profiler. Tears every engine down."""
+    ``traced`` rounds with the profiler. With telemetry on, the registry's
+    counter deltas and histogram sums over the timed rounds go in
+    ``out["telemetry"]``; with ``profile``, the engines count their stages
+    (``consensus.stage.<kind>.{ns,calls}``) and a sampling profiler with
+    stage tags runs over the timed rounds. Tears every engine down."""
     rng = random.Random(seed)
     keys = [crypto.generate_keypair(seed=rng.randbytes(32))[:2] for _ in range(n)]
     members = Committee({pk: Authority(1, ("127.0.0.1", base_port + i))
@@ -1244,6 +1281,20 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
                     cert_requests=getattr(backend, "cert_requests", 0),
                     dispatches=getattr(inner, "dispatches", 0), sigs=getattr(inner, "sigs", 0))
 
+    # The timed rounds' counts are read between inner calls: the window's
+    # edges take this gate, which every inner call holds, so no call is
+    # counted on one side of an edge and launches on the other.
+    inner = getattr(backend, "inner", None)
+    gate = threading.Lock()
+    if inner is not None:
+        real_verify = inner.verify_batch
+
+        def gated_verify(*args):
+            with gate:
+                return real_verify(*args)
+
+        inner.verify_batch = gated_verify
+
     # Spawned in descending leader order: the leader of round 1 proposes as
     # soon as it starts, and the votes for its block, sent best effort to
     # the leader of round 2, then find that leader listening (the
@@ -1251,6 +1302,7 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
     # In another order a vote sent before its receiver listens can be lost,
     # and round 2 waits out the 30 s timeout (seed 1 does so at N = 100).
     secret = dict(keys)
+    sampler = None
     try:
         t = time.perf_counter()
         for pk in reversed(members.sorted_keys()):
@@ -1264,21 +1316,41 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
             sinks.append(asyncio.create_task(drain()))
             engines.append(await Consensus.spawn(
                 pk, members, params, crypto.SignatureService(sk), Store(),
-                rx_mempool, tx_mempool, tx_commit,
+                rx_mempool, tx_mempool, tx_commit, profile=profile,
             ))
             commits.append(tx_commit)
         first = await next_round(COMMITTEE_BOOT_S, "the first commit")
         out["boot_s"] = time.perf_counter() - t
         out["first_round"] = first.round
 
-        before = counters()
-        reset_launches()
+        if profile:
+            sampler = pyprof.SamplingProfiler(interval_ms=pyprof.DEFAULT_INTERVAL_MS)
+            sampler.start(mode="auto")
+        registry = telemetry.get_registry() if telemetry.enabled() else None
+        with gate:
+            before = counters()
+            tm_before = registry.snapshot() if registry is not None else None
+            reset_launches()
         t = time.perf_counter()
         committed = [await next_round(COMMITTEE_ROUND_S, f"round {i + 1} of {rounds}")
                      for i in range(rounds)]
         out["ms_per_round"] = (time.perf_counter() - t) * 1e3 / rounds
-        out["launches"] = launch_counts()
-        after = counters()
+        with gate:
+            out["launches"] = launch_counts()
+            tm_after = registry.snapshot() if registry is not None else None
+            after = counters()
+        if sampler is not None:
+            sampler.stop()
+            out["stage_samples"] = sampler.stage_totals()
+            out["profile_record"] = sampler.drain_record(node="committee")
+            out["profile_mode"] = sampler.mode
+        if registry is not None:
+            hist = {}
+            for name, h in tm_after["histograms"].items():
+                h0 = tm_before["histograms"].get(name, {"sum": 0.0, "count": 0})
+                hist[name] = (h["sum"] - h0["sum"], h["count"] - h0["count"])
+            out["telemetry"] = {"counters": telemetry.diff_counters(
+                tm_before["counters"], tm_after["counters"]), "histograms": hist}
         out.update({key: after[key] - before[key] for key in after})
         out["rounds"] = [b.round for b in committed]
         check(out["timeouts"] == 0, f"{out['timeouts']} timeouts fired in the measured rounds")
@@ -1306,16 +1378,20 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
         check(sum(e.core.backend_failures for e in engines) == 0,
               "a verification met BackendUnavailable")
     finally:
+        if sampler is not None:
+            sampler.stop()
         for e in engines:
             await e.shutdown()
         for task in sinks:
             task.cancel()
+        if inner is not None:
+            del inner.verify_batch  # the class's method again
     return out
 
 
 def committee_phase(seed: int, card: str, device, imad_per_s: float):
     """Phase 9. Returns (launches in the measured rounds, the kernel rows at
-    the committee's width)."""
+    the committee's width, launches in the profiled run's rounds)."""
     cert_arena.reset()
     crypto.set_backend("cuda-batched")
     batched = crypto.get_backend()
@@ -1375,6 +1451,8 @@ def committee_phase(seed: int, card: str, device, imad_per_s: float):
               f"{1e3 / cpu['ms_per_round']:.3f} rounds/s; phase {time.perf_counter() - t:.1f} s")
     crypto.set_backend(batched)
 
+    profiled = profiled_committee(seed, card, gpu, batched)
+
     # The cached kernels at the committee's width: one N = 100 QC.
     keys, members = make_committee(COMMITTEE_N, seed)
     qc = make_qc(keys, members, 1, seed)
@@ -1387,7 +1465,95 @@ def committee_phase(seed: int, card: str, device, imad_per_s: float):
           f"{len(qc.votes)} signatures, mf={shapes[0]} mc={shapes[1]}:")
     for line in notes:
         print("  " + line)
-    return launches, rows
+    return launches, rows, profiled
+
+
+def profiled_committee(seed: int, card: str, gpu: dict, batched: BatchingBackend) -> dict:
+    """Phase 9's fourth run: the card committee of the first (the same keys)
+    with telemetry on, the Core's per-stage counters and a sampling profiler
+    with stage tags, read as the reference's ``benchmark/committee_scale.py``
+    reads its ``--profile`` run (counter deltas around the timed rounds).
+    Telemetry is off for the other runs, and is turned off and cleared after
+    this one. Returns its launches."""
+    telemetry.enable()
+    # Metric objects are taken when an actor is made: a superbatcher and a
+    # cert arena made now record (the card's key cache is kept).
+    crypto.set_backend(BatchingBackend(batched.inner, max_sigs=batched.max_sigs))
+    cert_arena.reset()
+    try:
+        t = time.perf_counter()
+        run = asyncio.run(committee(COMMITTEE_N, seed, COMMITTEE_PORTS[3], COMMITTEE_ROUNDS,
+                                    profile=True))
+        phase_s = time.perf_counter() - t
+    finally:
+        crypto.set_backend(batched)
+        telemetry.reset_for_tests()  # clears the registry, the rings and the profiler
+        telemetry.disable()
+        cert_arena.reset()
+    r, launches, tm = COMMITTEE_ROUNDS, run["launches"], run["telemetry"]
+    deltas, hist = tm["counters"], tm["histograms"]
+    calls = run["inner_calls"]
+    check(launches["verdict"] == calls and launches["msm_partials_signed"] == 2 * calls
+          and launches["msm_combine"] == 2 * calls and launches["msm_partials"] == 0,
+          f"the profiled committee's {calls} inner calls launched {launches}")
+    dispatched = deltas.get("crypto.dispatch.cuda", 0)
+    check(dispatched == launches["verdict"] == calls == run["dispatches"],
+          f"crypto.dispatch.cuda moved by {dispatched}: verdict launches {launches['verdict']}, "
+          f"inner calls {calls}, CudaBackend calls {run['dispatches']}")
+    check(deltas.get("crypto.dispatch.cuda_sigs", 0) == run["sigs"],
+          f"crypto.dispatch.cuda_sigs moved by {deltas.get('crypto.dispatch.cuda_sigs', 0)}, "
+          f"{run['sigs']} signatures dispatched")
+    advanced = deltas.get("consensus.rounds_advanced", 0)
+    check(advanced >= r, f"consensus.rounds_advanced moved by {advanced} in {r} rounds")
+    stages = {}
+    for name, value in deltas.items():
+        if name.startswith("consensus.stage."):
+            kind, field = name[len("consensus.stage."):].rsplit(".", 1)
+            stages.setdefault(kind, {"ns": 0, "calls": 0})[field] += value
+    check(stages, "the profiled committee counted no stage")
+    for kind, v in stages.items():
+        check(v["calls"] > 0, f"stage {kind} took {v['ns']} ns in no call")
+    record = run["profile_record"]
+    check(record is not None, "the sampling profiler drained no record")
+    problems = pyprof.validate_profile_record(record)
+    check(not problems, f"the profiler's record is malformed: {problems}")
+
+    wall_ns = run["ms_per_round"] * 1e6 * r
+    print(f"committee on {card}, profiled (telemetry on, Core profile=True, sampling profiler "
+          f"{run['profile_mode']} mode at {pyprof.DEFAULT_INTERVAL_MS} ms): "
+          f"{run['ms_per_round']:.2f} ms per committed round against {gpu['ms_per_round']:.2f} "
+          f"unprofiled; {calls / r:.2f} inner calls and {run['sigs'] / r:.1f} signatures a round; "
+          f"consensus.rounds_advanced +{advanced} ({advanced / COMMITTEE_N:.2f} an engine); "
+          f"crypto.dispatch.cuda +{dispatched} = verdict launches = inner calls; "
+          f"crypto.dispatch.cuda_sigs +{deltas['crypto.dispatch.cuda_sigs']}; phase {phase_s:.1f} s")
+    for kind, v in sorted(stages.items(), key=lambda kv: -kv[1]["ns"]):
+        print(f"committee on {card}, profiled: consensus.stage.{kind}: {v['ns'] / 1e6 / r:.2f} ms "
+              f"and {v['calls'] / r:.1f} calls a round ({v['ns'] / v['calls'] / 1e3:.1f} us a call)")
+    total_ns = sum(v["ns"] for v in stages.values())
+    print(f"committee on {card}, profiled: the stages sum to {total_ns / 1e6 / r:.2f} ms a round, "
+          f"{100 * total_ns / wall_ns:.1f}% of the round's wall time ({COMMITTEE_N} engines on one "
+          f"event loop; a handler's span includes its awaits, during which other engines' "
+          f"handlers run, so spans can overlap)")
+    samples = run["stage_samples"]
+    n_samples = sum(samples.values())
+    n_tagged = n_samples - samples.get("", 0)
+    check(n_tagged > 0, "the sampling profiler took no tagged sample")
+    tags = list(STAGE_TAGS) + sorted(set(samples) - set(STAGE_TAGS) - {""})
+    # Each tick samples every thread. The event loop's thread carries a tag
+    # from its first event on; a crypto worker carries "verify" while it
+    # verifies; the other threads (idle workers, the flusher) none.
+    print(f"committee on {card}, profiled: {record['samples']} ticks of {n_samples} thread "
+          f"samples ({record['threads']} threads at the last; ticks {record['gil_delay_ns'] / 1e6:.1f} "
+          f"ms late in all), {samples.get('', 0)} untagged; share of the {n_tagged} tagged by stage "
+          "tag: " + ", ".join(f"{tag} {100 * samples.get(tag, 0) / n_tagged:.1f}%" for tag in tags))
+    self_counts, _ = pyprof.aggregate_self_cum([e for e in record["stacks"] if e[0]])
+    print(f"committee on {card}, profiled: the tagged samples' leaf functions: " + ", ".join(
+        f"{name} {100 * c / n_tagged:.1f}%" for name, c in self_counts.most_common(8)))
+    for name in ("crypto.superbatch.flush_ms", "crypto.superbatch.per_sig_ms"):
+        total, count = hist.get(name, (0.0, 0))
+        check(count > 0, f"{name} observed nothing in the timed rounds")
+        print(f"committee on {card}, profiled: {name} mean {total / count:.4f} over {count} flushes")
+    return launches
 
 
 # -- phase 10: the mempool and the node ------------------------------------------
@@ -1738,7 +1904,10 @@ class NodeRun(logging.Handler):
                 "gc_full": sum(generation == 2 for generation, _ in self.pauses),
                 "gc_longest_ms": 1e3 * max((secs for _, secs in self.pauses), default=0.0)}
 
-    async def stop(self) -> None:
+    async def stop(self, read=None):
+        """Shuts the nodes down and removes their directory; ``read(tmp)``,
+        when given, reads it first (the nodes' streams are whole once they
+        are shut down). Returns what ``read`` returned."""
         self.unwatch_gc()
         for task in self.tasks:
             task.cancel()
@@ -1749,7 +1918,10 @@ class NodeRun(logging.Handler):
             logger.removeHandler(self)
             logger.setLevel(level)
             logger.propagate = True
-        shutil.rmtree(self.tmp, ignore_errors=True)
+        try:
+            return read(self.tmp) if read is not None else None
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 class VerifyWidths:
@@ -1847,7 +2019,12 @@ async def config1(seed: int, device) -> dict:
     # at the first ``get_backend()``.
     os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
     crypto._BACKEND = None
-    cert_arena.reset()
+    # Each node streams its telemetry as under ``benchmark/local.py``: the
+    # variable names the directory and the node names its file.
+    os.environ["HOTSTUFF_TELEMETRY_DIR"] = f"{tmp}/telemetry"
+    telemetry.enable()
+    cert_arena.reset()  # after enable: the arena takes its counters when made
+    sigterm = signal.getsignal(signal.SIGTERM)  # each node chains a final flush on it
 
     run = NodeRun(("client", "mempool"), tmp)
     drains: list[list[bytes]] = []
@@ -1933,9 +2110,39 @@ async def config1(seed: int, device) -> dict:
     finally:
         for task in clients:
             task.cancel()
-        await run.stop()
+        out["streams"] = await run.stop(read=read_streams)
+        for n in run.nodes:
+            # The final snapshot is written; without a trace ring the atexit
+            # flush has nothing to dump into the directory just removed.
+            if n.telemetry_emitter is not None:
+                n.telemetry_emitter.trace = None
+        signal.signal(signal.SIGTERM, sigterm)
+        del os.environ["HOTSTUFF_TELEMETRY_DIR"]
+        telemetry.reset_for_tests()  # clears the registry, the rings and the profiler
+        telemetry.disable()
+        cert_arena.reset()
         processor._device_digest_many = real_digest
         del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
+    return out
+
+
+def read_streams(tmp: str) -> dict:
+    """Each node's telemetry stream in ``tmp``: the port's validator's report
+    (every line checked against its schema) and its last snapshot."""
+    out = {}
+    if not os.path.isdir(f"{tmp}/telemetry"):
+        return out  # the nodes never booted
+    for name in sorted(os.listdir(f"{tmp}/telemetry")):
+        path = f"{tmp}/telemetry/{name}"
+        if not name.startswith("telemetry-"):
+            continue
+        snapshots = []
+        with open(path) as f:
+            for line in f:
+                record = json.loads(line)
+                if record.get("schema") == telemetry.SCHEMA:
+                    snapshots.append(record)
+        out[name] = (validate_stream(path), snapshots[-1] if snapshots else None)
     return out
 
 
@@ -1975,6 +2182,37 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
           f"{stats['device_batches']}, on the host {stats['host_batches']}; launches "
           + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
     print(f"config 1 on {card}: CudaBackend calls by signatures {run['sig_counts']}")
+    streams = run["streams"]
+    check(len(streams) == NODE_N, f"{len(streams)} telemetry streams for {NODE_N} nodes")
+    for name, (report, final) in streams.items():
+        check(report["ok"] and report["self_described"] and not report["unknown_schema"],
+              f"{name} fails the validator: {report['problems'][:3]}")
+        check(final is not None and final["final"], f"{name} holds no final snapshot")
+        for counter in ("consensus.qcs_formed", "mempool.batches_sealed", "net.frames_in"):
+            check(final["counters"].get(counter, 0) > 0, f"{name}: {counter} did not move")
+    # The four nodes share this process's registry, so each final snapshot
+    # holds the committee's totals: the harness's reader (benchmark/logs.py
+    # TelemetryParser) applied to the newest one, from the first proposal to
+    # the last commit.
+    last = max((final for _, final in streams.values()), key=lambda f: f["ts"])
+    span_s = last["gauges"]["consensus.last_commit_ts"] - last["gauges"]["consensus.first_proposal_ts"]
+    tele_tps = last["counters"]["consensus.committed_bytes"] / NODE_TX_BYTES / span_s
+    latency = last["histograms"]["consensus.commit_latency_ms"]
+    counts = {}
+    for report, _ in streams.values():
+        for schema, n in report["counts"].items():
+            counts[schema] = counts.get(schema, 0) + n
+    print(f"config 1 on {card}: {len(streams)} telemetry streams (HOTSTUFF_TELEMETRY_DIR) pass the "
+          f"validator line by line, {sum(r['lines'] for r, _ in streams.values())} lines: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(counts.items()) if v)
+          + f"; final snapshot: consensus.qcs_formed {last['counters']['consensus.qcs_formed']}, "
+          f"mempool.batches_sealed {last['counters']['mempool.batches_sealed']}, net.frames_in "
+          f"{last['counters']['net.frames_in']}")
+    print(f"config 1 on {card}: committed tx/s from the final snapshots {tele_tps:.1f} over "
+          f"{span_s:.2f} s (first proposal to last commit, boot and drain included; consensus "
+          f"latency mean {latency['sum'] / max(latency['count'], 1):.1f} ms over "
+          f"{latency['count']} batches) beside {run['tx_per_s']:.1f} from the logs over the "
+          f"{run['window_s']:.2f} s window")
     qc_rows = width_checks(run["widths"], run["inner"], device, imad_per_s, "config 1")
     # The kernel at the widest drain the node path gave it, against its plain
     # version on the same inputs.
@@ -1988,7 +2226,8 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
     row = dict(max_abs_err=err, ms=timed["ms"], plain_ms=plain_ms, bound_ms=timed["bound_ms"],
                bound_by=timed["bound_by"], shape=shape, hashlib_ms=timed["hashlib_ms"],
                sha512_32_batch_ms=timed["e2e_ms"], host_parts_ms=timed["parts"],
-               config1_tx_per_s=run["tx_per_s"], config1_p50_ms=run["p50_ms"],
+               config1_tx_per_s=run["tx_per_s"], config1_telemetry_tx_per_s=tele_tps,
+               config1_p50_ms=run["p50_ms"],
                config1_p95_ms=run["p95_ms"], config1_rounds_per_s=run["rounds_per_s"])
     return launches, row, qc_rows
 
@@ -3202,7 +3441,8 @@ def main() -> int:
         print("  " + line)
 
     # 9. the consensus engine on the card
-    committee_launches, committee_rows = committee_phase(args.seed, card, device, imad_per_s)
+    committee_launches, committee_rows, profiled_launches = committee_phase(
+        args.seed, card, device, imad_per_s)
 
     # 10. the mempool and the node: the digest kernel against its plain
     # version and hashlib, its times, then BASELINE config 1
@@ -3245,6 +3485,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None, "shape": row["shape"],
             "launches_node_path": node_launches[name],
             "launches_committee": committee_launches[name],
+            "launches_committee_profiled": profiled_launches[name],
             "launches_config1": config1_launches[name],
             "launches_conveyor": conveyor_launches[name],
             "launches_rejoin": rejoin_launches[name],
@@ -3275,6 +3516,7 @@ def main() -> int:
         "launches": launches["sha512"], "library_ms": None, **sha_row,
         "launches_node_path": node_launches["sha512"],
         "launches_committee": committee_launches["sha512"],
+        "launches_committee_profiled": profiled_launches["sha512"],
         "launches_config1": config1_launches["sha512"],
         "launches_conveyor": conveyor_launches["sha512"],
         "launches_rejoin": rejoin_launches["sha512"],

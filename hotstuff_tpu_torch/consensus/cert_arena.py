@@ -1,8 +1,9 @@
 """Process-wide certificate-verdict arena: each distinct certificate is
 fully verified once per process per committee.
 
-Port copy of ``hotstuff_tpu/consensus/cert_arena.py``, less its telemetry
-counters (``hits``/``misses`` stay as attributes). The super-batching
+Port copy of ``hotstuff_tpu/consensus/cert_arena.py``, with its telemetry
+counters (``consensus.cert_arena.{hits,misses}``; ``hits``/``misses`` stay
+as attributes too). The super-batching
 backend already prices the in-process copies of one rebroadcast
 certificate at one inner call when they pool in one flush, but only when
 they happen to pool; the arena makes that dedup deterministic: the first
@@ -22,6 +23,8 @@ import hashlib
 import os
 import threading
 from collections import OrderedDict
+
+from hotstuff_tpu_torch import telemetry
 
 
 def enabled() -> bool:
@@ -58,14 +61,18 @@ class CertArena:
         self._seen: "OrderedDict[tuple, None]" = OrderedDict()
         # hit()/add() run on every verifying thread.
         self._lock = threading.Lock()
+        self._m_hits = telemetry.counter("consensus.cert_arena.hits")
+        self._m_misses = telemetry.counter("consensus.cert_arena.misses")
 
     def hit(self, key: tuple) -> bool:
         with self._lock:
             if key in self._seen:
                 self._seen.move_to_end(key)
                 self.hits += 1
+                self._m_hits.inc()
                 return True
             self.misses += 1
+            self._m_misses.inc()
             return False
 
     def add(self, key: tuple) -> None:

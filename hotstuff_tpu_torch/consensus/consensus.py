@@ -5,8 +5,10 @@ Port copy of ``hotstuff_tpu/consensus/consensus.py``. Routing:
 ``SyncRequest`` -> Helper; ``Propose`` is ACKed then sent to the Core;
 ``Vote``/``Timeout``/``TC`` and the state-sync frames go straight to the
 Core. Every engine runs a ``StateSync``, and a ``Compactor`` when
-``retention_rounds > 0``. Left out: the native transport's vote pre-stage,
-and the profiler and per-stage telemetry hooks.
+``retention_rounds > 0``. The profiler's ``ingress`` tag on decode and the
+``profile`` switch (the core's per-stage counters) are the reference's.
+Left out: the native transport's vote pre-stage (``dispatch_votes`` and
+its ``fanin`` tag).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 from hotstuff_tpu_torch.crypto import PublicKey, SignatureService
 from hotstuff_tpu_torch.network import MessageHandler, Receiver
 from hotstuff_tpu_torch.store import Store
+from hotstuff_tpu_torch.telemetry import profiler as pyprof
 from hotstuff_tpu_torch.utils.serde import SerdeError
 
 from .config import Committee, Parameters
@@ -53,6 +56,11 @@ class ConsensusReceiverHandler(MessageHandler):
         self.seats = seats
 
     async def dispatch(self, writer, serialized: bytes) -> None:
+        if pyprof.TAGGING:
+            # Message decode is the function-level heart of the trace's
+            # ingress edge (a proposal decode parses a 2f+1-sig QC); tag
+            # it so the sampler blames decode frames on ingress.
+            pyprof.set_thread_stage("ingress")
         try:
             # Shared decode arena: a broadcast frame fanned to N in-process
             # engines parses once process-wide; every other arrival is a
@@ -95,6 +103,7 @@ class Consensus:
         tx_mempool: asyncio.Queue,  # Synchronize/Cleanup to mempool
         tx_commit: asyncio.Queue,  # committed blocks out
         benchmark: bool = False,
+        profile: bool = False,  # per-stage ns counters -> telemetry registry
     ) -> "Consensus":
         self = cls()
         parameters.log()
@@ -163,6 +172,7 @@ class Consensus:
             wire_seats=wire_seats,
             statesync=statesync,
             compactor=self.compactor,
+            profile=profile,
         )
         self.tasks.append(self.core.start())
         self.tasks.append(

@@ -22,11 +22,14 @@ requires ``Parameters.persist_sync`` (fsync per state update — slower).
 Port copy of ``hotstuff_tpu/consensus/core.py`` with all its handlers, the
 batched vote path (QC retry and vote ejection), timeout amplification and
 the persisted voting state, whose record is the reference's byte for byte.
-Left out: the telemetry counters and round tracer, the profiler's stage
-tagging and per-stage counters, the faultline audit line and the native
-vote pre-stage hook (``on_round_advance``). In their place the core keeps
-plain integer counters (``rounds_advanced``, ``qcs_formed``,
-``tcs_formed``, ``blocks_committed``, ``timeouts_fired``,
+The telemetry is the reference's: the ``consensus.*`` counters and
+gauges, the round tracer, ``record_commit`` and the commit dtrace event,
+the profiler's stage tags (``STAGE_SEEDS``) and, with ``profile=True``,
+the ``consensus.stage.<kind>.{ns,calls}`` counters. Left out: the
+faultline audit line and the native vote pre-stage hook
+(``on_round_advance``). Beside the telemetry, the core keeps the plain
+integer counters that its callers read whether telemetry is on or not
+(``qcs_formed``, ``blocks_committed``, ``timeouts_fired``,
 ``backend_failures``).
 
 One difference from the reference follows from the crypto plane: in front
@@ -43,10 +46,12 @@ from __future__ import annotations
 import asyncio
 import logging
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import BackendUnavailable, CryptoError, PublicKey, SignatureService
 from hotstuff_tpu_torch.network import SimpleSender
 from hotstuff_tpu_torch.store import Store, StoreError
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder, SerdeError
+from hotstuff_tpu_torch.telemetry import profiler as pyprof
 from hotstuff_tpu_torch.utils.tasks import log_task_death
 
 from .aggregator import Aggregator
@@ -77,10 +82,17 @@ _STATE_KEY = b"__consensus_state__"
 
 
 class Core:
-    # Protocol counters, class-level zeros so that state-only instances
-    # (tests build Core via ``__new__`` to exercise single handlers) count
-    # too; each increment makes an instance attribute.
-    rounds_advanced = qcs_formed = tcs_formed = blocks_committed = timeouts_fired = 0
+    # Class-level no-op defaults: state-only instances (tests build Core
+    # via ``__new__`` to exercise single handlers) and fully-wired cores
+    # with telemetry disabled share the same do-nothing metric objects;
+    # ``__init__`` overrides them with live ones when telemetry is on.
+    _m_proposals = _m_votes = _m_timeouts_rx = _m_timeouts = telemetry.NULL_COUNTER
+    _m_qcs = _m_tcs = _m_rounds = _m_blocks = telemetry.NULL_COUNTER
+    _g_round = _g_committed_round = telemetry.NULL_GAUGE
+    _trace = None
+    # Plain protocol counters, class-level zeros so that state-only
+    # instances count too; each increment makes an instance attribute.
+    qcs_formed = blocks_committed = timeouts_fired = 0
     # Verifications that the backend could not judge (``BackendUnavailable``).
     backend_failures = 0
     _wire_seats = None  # state-only instances broadcast legacy v1
@@ -112,6 +124,7 @@ class Core:
         timer=None,
         statesync=None,
         compactor=None,
+        profile: bool = False,
     ) -> None:
         self.name = name
         self.committee = committee
@@ -158,6 +171,38 @@ class Core:
         # Wire-format v2 seat table for outgoing timeout/TC broadcasts
         # (None = emit legacy v1). Decode-side acceptance is unconditional.
         self._wire_seats = wire_seats
+        # Optional per-stage profiling (benchmark --profile): one
+        # perf_counter_ns pair per handled event, accumulated into the
+        # telemetry registry as ``consensus.stage.<kind>.{ns,calls}``
+        # counters (benchmarks diff registry snapshots around their
+        # measured window). One truthiness check per event when off.
+        self._profile = bool(profile)
+        # Telemetry plane. The metric objects are no-op singletons when
+        # telemetry is disabled, so each record below costs one cheap
+        # method call; the round tracer is None when disabled (its marks
+        # take timestamps, which we skip entirely).
+        self._m_proposals = telemetry.counter("consensus.proposals_received")
+        self._m_votes = telemetry.counter("consensus.votes_received")
+        self._m_timeouts_rx = telemetry.counter("consensus.timeouts_received")
+        self._m_timeouts = telemetry.counter("consensus.timeouts_fired")
+        self._m_qcs = telemetry.counter("consensus.qcs_formed")
+        self._m_tcs = telemetry.counter("consensus.tcs_formed")
+        self._m_rounds = telemetry.counter("consensus.rounds_advanced")
+        self._m_blocks = telemetry.counter("consensus.blocks_committed")
+        self._g_round = telemetry.gauge("consensus.round")
+        self._g_committed_round = telemetry.gauge("consensus.last_committed_round")
+        # The node label keys this engine's events in the cross-node
+        # trace stream (in-process committees share one ring buffer);
+        # the 16-char base64 prefix is unique within any real committee.
+        self._trace = telemetry.round_trace(node=repr(name))
+        # Peer-label cache for trace-event details (vote_rx/propose carry
+        # "<author>|<digest>" so stream analyzers can score per-peer
+        # behavior); repr(PublicKey) base64-encodes on every call, so the
+        # hot vote path interns the label once per peer instead. The
+        # one-entry digest memo exists because all 2f+1 votes of a round
+        # carry the SAME block hash — one encode per round, not per vote.
+        self._peer_labels: dict = {}
+        self._vote_digest_memo: tuple[bytes, str] | None = None
         # Replica lifecycle: anti-entropy state sync and snapshot/truncate
         # compaction, both driven by this event loop.
         self._statesync = statesync
@@ -264,6 +309,12 @@ class Core:
 
         for blk in reversed(to_commit):
             self.blocks_committed += 1
+            self._m_blocks.inc()
+            self._g_committed_round.set(blk.round)
+            if self._trace is not None:
+                self._trace.mark_commit(
+                    blk.round, f"h{self.last_committed_round}"
+                )
             if blk.payload:
                 log.info("Committed %s", blk)
                 if self.benchmark:
@@ -271,6 +322,22 @@ class Core:
                         # NOTE: benchmark measurement interface (reference
                         # ``core.rs:145-149``).
                         log.info("Committed %s -> %s", blk, d)
+                for d in blk.payload:
+                    # Telemetry mirror of the "Committed B -> d" contract
+                    # (no-op unless telemetry is enabled).
+                    telemetry.record_commit(d.data)
+                if telemetry.dtrace_enabled():
+                    # Lifeline ordering-edge close: every node marks the
+                    # commit per payload digest (the assembler keeps the
+                    # earliest — the round-trace first-commit semantics).
+                    name_label = repr(self.name)
+                    for d in blk.payload:
+                        telemetry.dtrace_event(
+                            name_label,
+                            telemetry.intern_label(d.data),
+                            "committed",
+                            detail=f"r{blk.round}",
+                        )
             log.debug("Committed %r", blk)
             # Committed blocks (in commit order) feed the elector's
             # participation window (no-op for round-robin).
@@ -288,6 +355,9 @@ class Core:
     async def local_timeout_round(self) -> None:
         log.warning("Timeout reached for round %d", self.round)
         self.timeouts_fired += 1
+        self._m_timeouts.inc()
+        if self._trace is not None:
+            self._trace.mark_timeout(self.round)
         self.increase_last_voted_round(self.round)
         await self._persist_state()
         timeout = await Timeout.new(
@@ -328,10 +398,30 @@ class Core:
         for vote in votes:
             await self._guarded(self.handle_vote(vote))
 
+    def _peer_label(self, pk) -> str:
+        label = self._peer_labels.get(pk)
+        if label is None:
+            label = self._peer_labels[pk] = repr(pk)
+        return label
+
     async def handle_vote(self, vote: Vote) -> None:
         log.debug("Processing %r", vote)
+        self._m_votes.inc()
         if vote.round < self.round:
             return
+        if self._trace is not None:
+            self._trace.mark_vote(vote.round)
+            # Per-peer accountability evidence: WHO voted, for WHAT — the
+            # watchtower's vote-participation and conflicting-vote
+            # (equivocation) scorers read these off the trace stream.
+            memo = self._vote_digest_memo
+            if memo is None or memo[0] != vote.hash.data:
+                memo = self._vote_digest_memo = (
+                    vote.hash.data, repr(vote.hash)
+                )
+            self._trace.mark_vote_rx(
+                vote.round, self._peer_label(vote.author) + "|" + memo[1]
+            )
         if vote.round > self.round + self.MAX_ROUND_LOOKAHEAD:
             log.warning("dropping vote %d rounds ahead", vote.round - self.round)
             return
@@ -346,6 +436,9 @@ class Core:
     async def _complete_qc(self, qc: QC) -> None:
         log.debug("Assembled %r", qc)
         self.qcs_formed += 1
+        self._m_qcs.inc()
+        if self._trace is not None:
+            self._trace.mark_qc(qc.round)
         await self.process_qc(qc)
         if self.name == self.leader_elector.get_leader(self.round):
             await self.generate_proposal(None)
@@ -520,6 +613,7 @@ class Core:
 
     async def handle_timeout(self, timeout: Timeout) -> None:
         log.debug("Processing %r", timeout)
+        self._m_timeouts_rx.inc()
         if timeout.round < self.round:
             return
         if timeout.round > self.round + self.MAX_ROUND_LOOKAHEAD:
@@ -557,7 +651,7 @@ class Core:
         tc = self.aggregator.add_timeout(timeout)
         if tc is not None:
             log.debug("Assembled %r", tc)
-            self.tcs_formed += 1
+            self._m_tcs.inc()
             await self.advance_round(tc.round, via_tc=True)
             addresses = [a for _, a in self.committee.broadcast_addresses(self.name)]
             self.network.broadcast(addresses, encode_tc(tc, self._wire_seats))
@@ -594,6 +688,7 @@ class Core:
         log.warning(
             "amplifying timeout to round %d (f+1 peers are there)", round_
         )
+        telemetry.counter("consensus.timeouts_amplified").inc()
         self.increase_last_voted_round(round_)
         await self._persist_state()
         timeout = await Timeout.new(
@@ -616,7 +711,8 @@ class Core:
         # leader.ReputationLeaderElector.note_round_entry). No-op for
         # round-robin.
         self.leader_elector.note_round_entry(self.round, via_tc)
-        self.rounds_advanced += 1
+        self._m_rounds.inc()
+        self._g_round.set(self.round)
         log.debug("Moved to round %d", self.round)
         self.aggregator.cleanup(self.round)
         self._bad_sigs = {r: s for r, s in self._bad_sigs.items() if r >= self.round}
@@ -638,6 +734,11 @@ class Core:
 
     async def process_block(self, block: Block) -> None:
         log.debug("Processing %r", block)
+        if self._trace is not None:
+            # Loopback (our own proposal) reaches here without
+            # handle_proposal; first mark wins, so the double call on the
+            # network path is harmless.
+            self._trace.mark_propose(block.round)
         # We need the two ancestors b0 <- |qc0; b1| <- |qc1; block|; if any is
         # missing the synchronizer fetches them and re-injects this block.
         ancestors = await self.synchronizer.get_ancestors(block)
@@ -674,6 +775,8 @@ class Core:
         vote = await self.make_vote(block)
         if vote is not None:
             log.debug("Created %r", vote)
+            if self._trace is not None:
+                self._trace.mark_vote_send(block.round)
             next_leader = self.leader_elector.get_leader(self.round + 1)
             if next_leader == self.name:
                 await self.handle_vote(vote)
@@ -684,6 +787,12 @@ class Core:
 
     async def handle_proposal(self, block: Block) -> None:
         digest = block.digest()
+        self._m_proposals.inc()
+        if self._trace is not None:
+            self._trace.mark_propose(
+                block.round,
+                self._peer_label(block.author) + "|" + repr(digest),
+            )
         # Redelivery short-circuit: helpers answer sync requests with
         # ancestor CHAINS, so bursts can re-include blocks already fully
         # processed (stored => verified, certificates applied, ancestry
@@ -718,6 +827,12 @@ class Core:
         await verify_off_loop(
             block.verify, self.committee, self._cert_cache, n_sigs=n_sigs
         )
+        if self._trace is not None:
+            # receive→verified is the crypto-plane edge of the cross-node
+            # timeline; the assembler attributes it separately from the
+            # decode/queue edge (propose_send→propose) and the vote edge
+            # (verified→vote_send).
+            self._trace.mark_verified(block.round)
         await self.process_qc(block.qc)
         if block.tc is not None:
             await self.advance_round(block.tc.round, via_tc=True)
@@ -806,6 +921,24 @@ class Core:
         "statesync_tick": "handle_statesync_tick",  # internal loopback
     }
 
+    # Sampling-profiler stage seeds: each dequeued event opens under the
+    # trace edge its handler starts in; the RoundTrace marks then refine
+    # the tag as the handler crosses edge boundaries (e.g. a "propose"
+    # event opens as ingress work — dedup lookups, leader checks — until
+    # mark_propose flips it to verify).
+    STAGE_SEEDS = {
+        "propose": "ingress",
+        "vote": "fanin",
+        "votes": "fanin",
+        "timeout": "view_change",
+        "tc": "view_change",
+        "qc_retry": "verify",
+        "loopback": "vote",
+        "state_request": "ingress",
+        "state_response": "ingress",
+        "statesync_tick": "ingress",
+    }
+
     def bound_handlers(self) -> dict:
         return {kind: getattr(self, name) for kind, name in self.HANDLERS.items()}
 
@@ -843,8 +976,22 @@ class Core:
         # churn (3 done-callback registrations + a create_task per event)
         # was a measurable slice of single-core round latency.
         handlers = self.bound_handlers()
+        # One module attribute read per event when no profiler session is
+        # live (see STAGE_SEEDS).
+        stage_seeds = self.STAGE_SEEDS
         self._timer_handled = asyncio.Event()
         timer_task = asyncio.create_task(self._timer_pump(), name="consensus_timer")
+        profile = self._profile
+        if profile:
+            import time as _time
+
+            # Stage counters live in the process telemetry registry:
+            # ``consensus.stage.<kind>.{ns,calls}`` — an in-process
+            # committee's engines all add into the same counters, giving
+            # the whole committee's per-round handler bill in one place
+            # (benchmarks diff registry snapshots around their window).
+            registry = telemetry.get_registry()
+            stage_counters: dict[str, tuple] = {}
         try:
             while True:
                 kind, payload = await self.rx_message.get()
@@ -857,10 +1004,27 @@ class Core:
                     self._timer_handled.set()
                     continue
                 handler = handlers.get(kind)
+                if pyprof.TAGGING:
+                    pyprof.set_thread_stage(stage_seeds.get(kind, "other"))
                 if handler is None:
                     log.error("unexpected protocol message kind %s", kind)
-                else:
+                elif not profile:
                     await self._guarded(handler(payload))
+                else:
+                    pair = stage_counters.get(kind)
+                    if pair is None:
+                        pair = stage_counters[kind] = (
+                            registry.counter(f"consensus.stage.{kind}.ns"),
+                            registry.counter(f"consensus.stage.{kind}.calls"),
+                        )
+                    t0 = _time.perf_counter_ns()
+                    await self._guarded(handler(payload))
+                    pair[0].inc(_time.perf_counter_ns() - t0)
+                    pair[1].inc()
+                if pyprof.TAGGING:
+                    # Back to the queue wait: samples here are event-loop
+                    # idle/dispatch cost, not the last handler's edge.
+                    pyprof.set_thread_stage("idle")
         finally:
             timer_task.cancel()
 

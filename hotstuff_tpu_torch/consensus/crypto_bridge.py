@@ -1,7 +1,8 @@
 """Async bridge between the consensus event loop and the crypto plane.
 
-Port copy of ``hotstuff_tpu/consensus/crypto_bridge.py``, less its
-profiler tagging. The Core's select loop must never block on signature
+Port copy of ``hotstuff_tpu/consensus/crypto_bridge.py``, with its
+profiler tagging (a worker thread's verification samples under the
+``verify`` stage). The Core's select loop must never block on signature
 verification: a QC verification is a batch crypto call that, on the CUDA
 backend, involves a host-to-card round trip. The bridge runs verifications
 on a small worker pool and the Core awaits them, so network handling,
@@ -20,6 +21,8 @@ from __future__ import annotations
 import asyncio
 import os
 from concurrent.futures import ThreadPoolExecutor
+
+from hotstuff_tpu_torch.telemetry import profiler as pyprof
 
 _EXECUTOR: ThreadPoolExecutor | None = None
 
@@ -68,4 +71,13 @@ async def verify_off_loop(verify_fn, *args, n_sigs: int = 1):
     if not _backend_blocks() and n_sigs < INLINE_SIG_LIMIT:
         return verify_fn(*args)
     loop = asyncio.get_running_loop()
+    if pyprof.TAGGING:
+        # The verification runs on a crypto worker thread; tag that
+        # thread for the sampling profiler so its stack samples join the
+        # trace's verify edge instead of landing unstaged.
+        def _tagged():
+            with pyprof.stage("verify"):
+                return verify_fn(*args)
+
+        return await loop.run_in_executor(_executor(), _tagged)
     return await loop.run_in_executor(_executor(), lambda: verify_fn(*args))

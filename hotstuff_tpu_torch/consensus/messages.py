@@ -1,7 +1,7 @@
 """Consensus messages: Block, Vote, QC, Timeout, TC, and their wire codec.
 
 Port copy of ``hotstuff_tpu/consensus/messages.py`` (reference
-``consensus/src/messages.rs``), less its telemetry counter. Byte formats
+``consensus/src/messages.rs``), with its telemetry counter. Byte formats
 and verdicts are the reference's: a frame one package encodes decodes in
 the other, and an encoding of the same object is byte-identical.
 
@@ -63,6 +63,9 @@ def _intern_pk(raw: bytes) -> PublicKey:
             global intern_evictions
             _PK_INTERN.popitem(last=False)
             intern_evictions += 1
+            from hotstuff_tpu_torch import telemetry
+
+            telemetry.counter("consensus.intern_pk.evictions").inc()
         pk = _PK_INTERN[raw] = PublicKey(raw)
     else:
         _PK_INTERN.move_to_end(raw)

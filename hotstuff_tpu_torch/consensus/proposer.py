@@ -1,7 +1,8 @@
 """Block proposer (reference ``consensus/src/proposer.rs``).
 
-Port copy of ``hotstuff_tpu/consensus/proposer.py``, less its telemetry
-(gauges, trace and dtrace events).
+Port copy of ``hotstuff_tpu/consensus/proposer.py``, with its telemetry
+(the proposer gauges, ``record_created``, the ``proposed`` dtrace event and
+the ``propose_send`` trace anchor).
 
 Owns the payload buffer fed by mempool digests. On ``Make(round, qc, tc)``
 builds and signs a block draining the buffer, reliable-broadcasts it, loops
@@ -15,6 +16,7 @@ import asyncio
 import logging
 from dataclasses import dataclass
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import Digest, PublicKey, SignatureService
 from hotstuff_tpu_torch.network import ReliableSender
 from hotstuff_tpu_torch.utils.quorum import cancel_remaining, wait_for_ack_quorum
@@ -104,17 +106,61 @@ class Proposer:
     async def _make_block(self, round_: Round, qc: QC, tc: TC | None) -> None:
         payload = list(self.buffer)
         self.buffer.clear()
+        if telemetry.enabled():
+            # How much certified work each proposal drains, and how much
+            # is still queued upstream — the first diagnostic when
+            # ingest outruns ordering.
+            telemetry.gauge("consensus.proposer.payload_drained").set(
+                len(payload)
+            )
+            telemetry.gauge("consensus.proposer.digest_queue_depth").set(
+                self.rx_mempool.qsize()
+            )
         block = await Block.new(
             qc, tc, self.name, round_, payload, self.signature_service
         )
         if block.payload:
             log.info("Created %s", block)
+            for d in block.payload:
+                # Telemetry mirror of the "Created B -> d" measurement
+                # contract (no-op unless telemetry is enabled).
+                telemetry.record_created(d.data)
+            if telemetry.dtrace_enabled():
+                # Lifeline join point: each payload digest leaves the
+                # queue-wait edge here, and the ``r<round>`` detail keys
+                # the batch timeline onto the round trace's ordering
+                # breakdown for this round.
+                name_label = repr(self.name)
+                for d in block.payload:
+                    telemetry.dtrace_event(
+                        name_label,
+                        telemetry.intern_label(d.data),
+                        "proposed",
+                        detail=f"r{round_}",
+                    )
             if self.benchmark:
                 for d in block.payload:
                     # NOTE: benchmark measurement interface (reference
                     # ``proposer.rs:76-80``).
                     log.info("Created %s -> %s", block, d)
         log.debug("Broadcasting %r", block)
+        # Cross-node trace anchor: the leader's broadcast instant is t=0
+        # of the round's causal timeline (the propose_send→propose edge
+        # at each replica is wire + receiver decode + core queue wait).
+        # The detail names the author + block digest so stream analyzers
+        # can attribute the round's proposal and spot conflicting blocks
+        # (one extra digest hash per broadcast, leader-side only — and
+        # only when telemetry is enabled).
+        telemetry.trace_event(
+            repr(self.name),
+            round_,
+            "propose_send",
+            detail=(
+                f"{self.name!r}|{block.digest()!r}"
+                if telemetry.enabled()
+                else None
+            ),
+        )
         serialized = encode_propose(block, self.wire_seats)
         names_addresses = self.committee.broadcast_addresses(self.name)
         handlers = [

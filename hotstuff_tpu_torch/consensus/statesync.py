@@ -3,7 +3,8 @@
 Port copy of ``hotstuff_tpu/consensus/statesync.py``, whole but for the
 simulation plane's switch that leaves the probe loop unarmed (the port has
 no simulation plane), with the reference's telemetry gauges and counters
-as plain int attributes. Two cooperating pieces, both driven by the Core's
+(``statesync.*``, ``store.compactions``, ``store.compaction_bytes_freed``,
+``store.snapshot_round``) and the same counts as int attributes. Two cooperating pieces, both driven by the Core's
 event loop:
 
 **StateSync**: anti-entropy catch-up for cold-joining or lagging replicas.
@@ -43,6 +44,7 @@ from __future__ import annotations
 import asyncio
 import logging
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import Digest, PublicKey
 from hotstuff_tpu_torch.store import StoreError
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder, SerdeError
@@ -174,6 +176,10 @@ class StateSync:
         self.frontier_gap = 0  # rounds behind the last peer frontier heard
         self.probes_sent = 0
         self.snapshots_installed = 0
+        self._g_active = telemetry.gauge("statesync.active")
+        self._g_gap = telemetry.gauge("statesync.frontier_gap")
+        self._m_probes = telemetry.counter("statesync.probes_sent")
+        self._m_installed = telemetry.counter("statesync.snapshots_installed")
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -227,8 +233,10 @@ class StateSync:
             # committee still commits empty blocks.)
             self._last_seen_commit = core.last_committed_round
             self.probing = 0
+            self._g_active.set(0)
         else:
             self.probing = 1
+            self._g_active.set(1)
             self._probe()
         self._schedule_tick()
 
@@ -243,6 +251,7 @@ class StateSync:
         if address is None:
             return
         self.probes_sent += 1
+        self._m_probes.inc()
         log.debug("statesync probe -> %s (committed r%d)", pk, self._core.last_committed_round)
         self._core.network.send(
             address, encode_state_request(self._core.last_committed_round, self.name)
@@ -290,6 +299,7 @@ class StateSync:
         core = self._core
         gap = frontier_round - core.last_committed_round
         self.frontier_gap = max(0, gap)
+        self._g_gap.set(max(0, gap))
         if gap <= 0:
             return  # we are at or past this peer's frontier
         if snapshot is not None:
@@ -334,6 +344,7 @@ class StateSync:
             core.last_committed_round,
         )
         self.snapshots_installed += 1
+        self._m_installed.inc()
         await core.store.write_meta(SNAPSHOT_KEY, raw, sync=True)
         core.synchronizer.note_floor(snap.frontier)
         core.last_committed_round = max(core.last_committed_round, snap.frontier.round)
@@ -367,6 +378,9 @@ class Compactor:
         self.compactions = 0
         self.bytes_freed = 0
         self.keys_dropped = 0
+        self._m_compactions = telemetry.counter("store.compactions")
+        self._m_freed = telemetry.counter("store.compaction_bytes_freed")
+        self._g_snapshot_round = telemetry.gauge("store.snapshot_round")
 
     def note_commit(self, block: Block) -> None:
         if self._head is None or block.round > self._head.round:
@@ -419,6 +433,7 @@ class Compactor:
         # on a phased engine and this node keeps voting meanwhile.
         self.snapshot_round = frontier.round
         core.synchronizer.note_floor(frontier)
+        self._g_snapshot_round.set(frontier.round)
 
         async def _rewrite() -> None:
             try:
@@ -429,6 +444,8 @@ class Compactor:
                 return
             self.compactions += 1
             self.bytes_freed += freed
+            self._m_compactions.inc()
+            self._m_freed.inc(freed)
             self.keys_dropped += len(drop)
             log.info(
                 "snapshot at r%d: dropped %d keys below the floor, freed %d bytes",

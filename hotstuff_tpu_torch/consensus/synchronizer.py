@@ -1,8 +1,8 @@
 """Consensus block-ancestry synchronizer (reference
 ``consensus/src/synchronizer.rs``).
 
-Port copy of ``hotstuff_tpu/consensus/synchronizer.py``, whole but for its
-sync-request telemetry counter.
+Port copy of ``hotstuff_tpu/consensus/synchronizer.py``, whole, with its
+``consensus.sync_requests`` counter.
 
 ``get_parent_block`` reads the store or fires a ``SyncRequest`` to the block
 author and suspends processing; an inner task waits on store ``notify_read``
@@ -17,6 +17,7 @@ import asyncio
 import logging
 import time
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import Digest, PublicKey
 from hotstuff_tpu_torch.network import SimpleSender
 from hotstuff_tpu_torch.store import Store
@@ -96,6 +97,7 @@ class Synchronizer:
         task.add_done_callback(self._tasks.discard)
         if parent not in self._requests:
             log.debug("requesting sync for block %s", parent)
+            telemetry.counter("consensus.sync_requests").inc()
             now = self._clock()
             self._requests[parent] = now
             self._last_sent[parent] = now
@@ -203,6 +205,7 @@ class Synchronizer:
         if digest in self._requests:
             return
         log.debug("requesting state-sync frontier block %s", digest)
+        telemetry.counter("consensus.sync_requests").inc()
         now = self._clock()
         self._requests[digest] = now
         self._last_sent[digest] = now

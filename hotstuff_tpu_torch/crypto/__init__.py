@@ -18,8 +18,11 @@ the QC and TC path — goes to the active backend: ``"cuda"``
 (``crypto/cuda_backend.py``, the default), ``"cpu"``, their super-batching
 variants ``"cuda-batched"``/``"cpu-batched"`` (``crypto/batching.py``), or
 a backend object; unless one is set, the first ``get_backend()`` takes the
-name from ``HOTSTUFF_CRYPTO_BACKEND``. Left in the reference: the opt-in
-verdict memo and the signer memo of its simulation plane.
+name from ``HOTSTUFF_CRYPTO_BACKEND``. ``CpuBackend`` counts its dispatches
+into the reference's ``crypto.dispatch.cpu*`` telemetry counters. Left in
+the reference: the opt-in verdict memo (with its
+``crypto.verify_memo.hits`` counter) and the signer memo of its simulation
+plane.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ try:
 except ImportError:  # the card's host may ship no OpenSSL binding
     InvalidSignature = Ed25519PrivateKey = Ed25519PublicKey = None
     _HAVE_PYCA = False
+
+from hotstuff_tpu_torch import telemetry
 
 from . import ed25519_ref, native_ed25519
 
@@ -468,6 +473,8 @@ class CpuBackend:
     def verify_batch(self, msgs, pubs, sigs) -> None:
         if not len(msgs) == len(pubs) == len(sigs):
             raise CryptoError("batch length mismatch")
+        telemetry.counter("crypto.dispatch.cpu").inc()
+        telemetry.counter("crypto.dispatch.cpu_sigs").inc(len(msgs))
         # Without OpenSSL even a batch of one goes to the engine: the
         # pure-Python loop below costs milliseconds a signature.
         if self._rlc is not None and (len(msgs) >= 2 or not _HAVE_PYCA):
@@ -494,6 +501,8 @@ class CpuBackend:
         """Fused certificate verification: one RLC MSM over the cert's
         packed signature buffer on the native engine, with the acceptance
         set of its exploded slices; serial, the exploded batch."""
+        telemetry.counter("crypto.dispatch.cpu_cert").inc()
+        telemetry.counter("crypto.dispatch.cpu_cert_sigs").inc(len(pubs))
         if self._rlc is not None:
             if not native_ed25519.verify_cert_native(msgs, pubs, sig_buf, stride):
                 raise CryptoError("invalid signature in certificate")

@@ -21,6 +21,11 @@ The error contract is the reference's (``tpu_backend.py:64-106``):
 - a rejected batch raises ``CryptoError``;
 - on ``CacheFull`` the backend starts a fresh cache and verifies the
   batch through the uncached path.
+
+Each non-empty batch counts into the telemetry counters
+``crypto.dispatch.cuda`` and ``crypto.dispatch.cuda_sigs`` (the
+reference's ``crypto.dispatch.tpu`` and ``tpu_sigs``, renamed as the
+switches' values are), and into ``dispatches`` and ``sigs``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import os
 import threading
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.ops import verify as ops_verify
 from hotstuff_tpu_torch.parallel import mesh as pmesh
 from hotstuff_tpu_torch.utils.device import resolve
@@ -77,6 +83,8 @@ class CudaBackend:
         with self._count_lock:
             self.dispatches += 1
             self.sigs += len(msgs)
+        telemetry.counter("crypto.dispatch.cuda").inc()
+        telemetry.counter("crypto.dispatch.cuda_sigs").inc(len(msgs))
         try:
             if self._mesh is not None and self._cache is not None:
                 try:

@@ -11,9 +11,9 @@ the RLC scalar arithmetic mod L.
 
 It is the CPU bar for the bench (dalek ``verify_batch`` semantics and
 algorithm, reference ``crypto/src/lib.rs:206-219``, at native speed) and
-the engine behind ``CpuBackend``'s RLC path. Left in the reference: the
-registration of ``native_stats`` with the telemetry registry and of the
-entry points with its profiler, since the port has no telemetry.
+the engine behind ``CpuBackend``'s RLC path. Once loaded, ``native_stats``
+is the telemetry registry's ``crypto.native`` collector and the entry
+points are registered with the sampling profiler, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import hashlib
 import secrets
 from pathlib import Path
 
+from hotstuff_tpu_torch import telemetry
+from hotstuff_tpu_torch.telemetry import profiler as _pyprof
 from hotstuff_tpu_torch.utils import kernel_build
 
 from .ed25519_ref import G, L, P, point_compress
@@ -87,6 +89,21 @@ def _load():
             ctypes.c_int,
         ]
         _lib = lib
+        # The engine's counters surface through the registry's single
+        # snapshot call once the library is live.
+        telemetry.register_collector("crypto.native", native_stats)
+        # Instrumentable ctypes boundary: an active profiler session
+        # counts calls + wall ns per entry point (the per-call GIL
+        # release/reacquire toll); zero cost otherwise.
+        _pyprof.register_ctypes_lib(
+            lib,
+            "hs_ed25519",
+            [
+                "hs_ed25519_msm_is_identity", "hs_ed25519_msm_signed",
+                "hs_ed25519_decompress_check", "hs_ed25519_scalarmult_base",
+                "hs_ed25519_cert_challenges",
+            ],
+        )
     return _lib
 
 

@@ -1,7 +1,7 @@
 """BatchMaker: assemble client transactions into batches and disseminate
 them (reference ``mempool/src/batch_maker.rs``).
 
-Port copy of ``hotstuff_tpu/mempool/batch_maker.py``, less its telemetry
+Port copy of ``hotstuff_tpu/mempool/batch_maker.py``, with its telemetry
 (the txs-received counter, the queue-depth gauge and the sealed-batch
 record). Seals when the batch reaches ``batch_size`` bytes or after
 ``max_batch_delay`` ms, whichever first; reliable-broadcasts the sealed
@@ -17,6 +17,7 @@ import asyncio
 import logging
 import time
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import PublicKey, sha512_digest
 from hotstuff_tpu_torch.network import ReliableSender
 
@@ -47,6 +48,8 @@ class BatchMaker:
         self.current_batch: list[Transaction] = []
         self.current_batch_size = 0
         self.network = ReliableSender()
+        self._m_txs = telemetry.counter("mempool.txs_received")
+        self._g_queue = telemetry.gauge("mempool.tx_queue_depth")
 
     @classmethod
     def spawn(cls, *args, **kwargs) -> asyncio.Task:
@@ -63,6 +66,7 @@ class BatchMaker:
             timeout = max(deadline - time.monotonic(), 0)
             try:
                 tx = await asyncio.wait_for(self.rx_transaction.get(), timeout)
+                self._m_txs.inc()
                 self.current_batch.append(tx)
                 self.current_batch_size += len(tx)
                 if self.current_batch_size >= self.batch_size:
@@ -86,8 +90,19 @@ class BatchMaker:
         batch, self.current_batch, self.current_batch_size = self.current_batch, [], 0
         serialized = encode_batch(batch)
 
+        digest = (
+            sha512_digest(serialized)
+            if self.benchmark or telemetry.enabled()
+            else None
+        )
+        if telemetry.enabled():
+            # Queue depth sampled at seal time (the moment of interest:
+            # how far intake is running ahead of sealing) and the sealed
+            # batch recorded under the same digest key the "Batch d
+            # contains N B" regex contract uses.
+            self._g_queue.set(self.rx_transaction.qsize())
+            telemetry.record_sealed(digest.data, size)
         if self.benchmark:
-            digest = sha512_digest(serialized)
             for tx_id in sample_ids:
                 # NOTE: these exact log formats are the benchmark harness's
                 # measurement interface (reference ``batch_maker.rs:129-139``).

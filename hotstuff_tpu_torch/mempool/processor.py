@@ -2,7 +2,8 @@
 consensus (reference ``mempool/src/processor.rs:18-38``). Spawned twice:
 once for our own quorum-ACKed batches, once for batches from peers.
 
-Port of ``hotstuff_tpu/mempool/processor.py``, less its telemetry. With
+Port of ``hotstuff_tpu/mempool/processor.py``, with its telemetry
+counters (``mempool.batches_processed``, ``mempool.batch_bytes_stored``). With
 ``device_digests=True`` the processor drains its input queue, up to
 ``MAX_DEVICE_BATCH`` batches, and hashes a drain of more than one batch in
 one launch of the SHA-512 kernel (``ops.sha512.sha512_32_batch``, through
@@ -31,6 +32,7 @@ import asyncio
 import collections
 import logging
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import Digest, sha512_digest
 from hotstuff_tpu_torch.store import Store
 from hotstuff_tpu_torch.utils.device import resolve
@@ -69,6 +71,8 @@ class Processor:
         dev = resolve(device) if device_digests else None
 
         async def run():
+            m_batches = telemetry.counter("mempool.batches_processed")
+            m_bytes = telemetry.counter("mempool.batch_bytes_stored")
             while True:
                 batch: bytes = await rx_batch.get()
                 batches = [batch]
@@ -87,6 +91,8 @@ class Processor:
                     digests = [sha512_digest(b) for b in batches]
                     STATS["host_batches"] += len(batches)
                 for digest, b in zip(digests, batches):
+                    m_batches.inc()
+                    m_bytes.inc(len(b))
                     await store.write(digest.data, b)
                     await tx_digest.put(digest)
 

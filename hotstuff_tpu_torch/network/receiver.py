@@ -1,8 +1,9 @@
 """TCP receiver: accept loop + per-connection runners dispatching frames to a
 user-supplied handler (reference ``network/src/receiver.rs:38-88``).
 
-Port copy of ``hotstuff_tpu/network/receiver.py``, less its telemetry
-counters and the faultline ingress filter. Frames and ACKs are the
+Port copy of ``hotstuff_tpu/network/receiver.py`` with its telemetry
+counters (``net.frames_in``, ``net.bytes_in``), less the faultline ingress
+filter. Frames and ACKs are the
 reference's: 4-byte big-endian length prefix, ``b"Ack"`` replies.
 """
 
@@ -11,6 +12,8 @@ from __future__ import annotations
 import asyncio
 import logging
 import struct
+
+from hotstuff_tpu_torch import telemetry
 
 log = logging.getLogger("network")
 
@@ -150,6 +153,8 @@ class Receiver:
         framed = _AckedWriter() if self.auto_ack else FramedWriter(writer)
         self._writers.add(writer)
         self._conn_tasks.add(asyncio.current_task())
+        m_frames = telemetry.counter("net.frames_in")
+        m_bytes = telemetry.counter("net.bytes_in")
         dispatch_frames = getattr(self.handler, "dispatch_frames", None)
         buf = bytearray()
         try:
@@ -157,6 +162,8 @@ class Receiver:
                 frames = await read_frames(reader, buf)
                 if not frames:
                     break  # clean EOF
+                m_frames.inc(len(frames))
+                m_bytes.inc(sum(len(f) + 4 for f in frames))
                 if self.auto_ack:
                     for _ in frames:
                         write_frame(writer, b"Ack")

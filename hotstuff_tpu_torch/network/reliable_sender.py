@@ -1,7 +1,8 @@
 """At-least-once sender (reference ``network/src/reliable_sender.rs``).
 
-Port copy of ``hotstuff_tpu/network/reliable_sender.py``, less its telemetry
-counters and the faultline link filter.
+Port copy of ``hotstuff_tpu/network/reliable_sender.py`` with its telemetry
+counters (``net.frames_out``, ``net.bytes_out``, ``net.writes``), less the
+faultline link filter.
 
 ``send`` returns a ``CancelHandler`` — a future resolved with the peer's ACK
 bytes. Per-peer connection tasks reconnect with exponential backoff (200 ms,
@@ -32,6 +33,8 @@ import asyncio
 import logging
 import random
 from collections import deque
+
+from hotstuff_tpu_torch import telemetry
 
 from .budget import BUDGET
 from .receiver import read_frame, write_frame
@@ -151,6 +154,9 @@ class _Connection:
         self._prune()
         # Sent but not yet ACKed on THIS connection; replayed on reconnect.
         inflight: deque[tuple[bytes, CancelHandler]] = deque()
+        m_frames = telemetry.counter("net.frames_out")
+        m_bytes = telemetry.counter("net.bytes_out")
+        m_writes = telemetry.counter("net.writes")
 
         async def write_loop() -> None:
             while True:
@@ -160,6 +166,9 @@ class _Connection:
                         continue
                     inflight.append((data, handler))
                     write_frame(writer, data)
+                    m_frames.inc()
+                    m_bytes.inc(len(data) + 4)
+                    m_writes.inc()
                     await writer.drain()
                 self.new_work.clear()
                 await self.new_work.wait()

@@ -1,7 +1,8 @@
 """Best-effort sender (reference ``network/src/simple_sender.rs:22-143``).
 
-Port copy of ``hotstuff_tpu/network/simple_sender.py``, less its telemetry
-counters and the faultline link filter.
+Port copy of ``hotstuff_tpu/network/simple_sender.py`` with its telemetry
+counters (``net.frames_out``, ``net.bytes_out``, ``net.writes``,
+``net.send_drops``), less the faultline link filter.
 
 One connection task per peer holding a bounded queue; no retry — on socket
 error the connection task dies and queued messages are dropped; the next
@@ -18,6 +19,8 @@ import asyncio
 import logging
 import random
 import struct
+
+from hotstuff_tpu_torch import telemetry
 
 from .budget import BUDGET
 from .receiver import read_frame
@@ -42,6 +45,10 @@ class _Connection:
         self.evicted = False
         self.closed = False  # the peer closed or reset the connection
         self._writing = False
+        self._m_frames = telemetry.counter("net.frames_out")
+        self._m_bytes = telemetry.counter("net.bytes_out")
+        self._m_writes = telemetry.counter("net.writes")
+        self._m_drops = telemetry.counter("net.send_drops")
         self.task = asyncio.create_task(self._run())
         BUDGET.register(self)
 
@@ -70,12 +77,18 @@ class _Connection:
                     data = await self.queue.get()
                     self._writing = True
                     writer.write(data)
+                    nbytes = len(data)
                     # Gather the backlog: every already-queued frame rides
                     # the same drain (one flow-control round trip).
                     burst = 1
                     while burst < _WRITE_BATCH and not self.queue.empty():
-                        writer.write(self.queue.get_nowait())
+                        chunk = self.queue.get_nowait()
+                        writer.write(chunk)
+                        nbytes += len(chunk)
                         burst += 1
+                    self._m_frames.inc(burst)
+                    self._m_bytes.inc(nbytes)
+                    self._m_writes.inc()
                     await writer.drain()
                     self._writing = False
             except (ConnectionError, OSError) as e:
@@ -106,6 +119,7 @@ class _Connection:
             return True
         except asyncio.QueueFull:
             log.warning("dropping message to %s: channel full", self.address)
+            self._m_drops.inc()
             return True  # best-effort: dropped, but connection is alive
 
 

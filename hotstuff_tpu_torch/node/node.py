@@ -10,17 +10,21 @@ runs the data plane (``workers > 0``), committed blocks pass through its
 ``device`` (default ``"cuda"``) goes down to the mempool's processors,
 whose SHA-512 kernel it runs when ``device_batch_digests`` is on; the
 certificate path's device is the crypto backend's
-(``HOTSTUFF_CRYPTO_BACKEND``). Left out: the faultline scenario hook
-(reference ``:37-64``), telemetry and the sampling profiler
-(``:159-197``), and the faultline counters and flight record of
-``crash``/``restart``.
+(``HOTSTUFF_CRYPTO_BACKEND``). With telemetry on, ``new`` installs the
+resource collector, starts the sampling profiler under ``HOTSTUFF_PYPROF``
+and streams snapshots to ``HOTSTUFF_TELEMETRY[_DIR]`` with the shutdown
+flush armed, as the reference does (``:151-192``). Left out: the faultline
+scenario hook (reference ``:37-64``), and the faultline counters and
+flight record of ``crash``/``restart`` (``:245-256``, ``:306``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.consensus import Consensus
 from hotstuff_tpu_torch.crypto import SignatureService, get_backend
 from hotstuff_tpu_torch.mempool import Mempool
@@ -43,6 +47,7 @@ class Node:
         self.store: Store | None = None
         self.resolver: CommitResolver | None = None  # the data plane's commit path
         self.resolver_task: asyncio.Task | None = None
+        self.telemetry_emitter: telemetry.TelemetryEmitter | None = None
         self.crashed = False
         # The crashed engine's compactor: its background log rewrite may
         # still run, and must end before a restart or the store's close.
@@ -74,6 +79,49 @@ class Node:
         self.store = Store(store_path)
         self._boot = (secret, committee, parameters, benchmark, device)
         await self._spawn()
+
+        # Resource observability (RSS, on-disk store size, optional
+        # tracemalloc) + the continuous sampling profiler. The resource
+        # collector is registered whenever telemetry is on — it costs
+        # nothing until a snapshot polls it; the profiler is opt-in via
+        # HOTSTUFF_PYPROF=1 (HOTSTUFF_PYPROF_INTERVAL_MS tunes the
+        # cadence) and its hotstuff-profile-v1 records ride the node's
+        # snapshot stream via the emitter below.
+        if telemetry.enabled():
+            from hotstuff_tpu_torch.telemetry import profiler as pyprof, resources
+
+            resources.install(store_path=store_path)
+            if os.environ.get("HOTSTUFF_PYPROF") and pyprof.active() is None:
+                prof = pyprof.SamplingProfiler(
+                    interval_ms=pyprof.env_interval_ms()
+                )
+                prof.start(mode="auto")
+                telemetry.register_collector("profile", prof.collector)
+                log.info(
+                    "sampling profiler armed (%s mode, %.1f ms)",
+                    prof.mode, prof.interval_ms,
+                )
+
+        # Telemetry snapshot stream (HOTSTUFF_TELEMETRY[_DIR]): periodic
+        # JSON-lines snapshots plus a final one at shutdown —
+        # benchmark/logs.py reads these alongside the regex log scrape.
+        stream_path = telemetry.env_stream_path(str(secret.name))
+        if telemetry.enabled() and stream_path is not None:
+            self.telemetry_emitter = telemetry.TelemetryEmitter(
+                telemetry.get_registry(),
+                stream_path,
+                node=str(secret.name),
+                interval_s=telemetry.env_interval_s(),
+                trace=telemetry.trace_buffer(),
+                dtrace=telemetry.dtrace_buffer(),
+            ).spawn()
+            # Unclean teardown (SIGTERM, atexit) still flushes the final
+            # snapshot + trace tail and dumps the flight record.
+            telemetry.arm_shutdown_flush(
+                self.telemetry_emitter,
+                flight_path=telemetry.env_flight_path(str(secret.name)),
+            )
+
         log.info("Node %s successfully booted", secret.name)
         return self
 
@@ -191,5 +239,7 @@ class Node:
             await self.mempool.shutdown()
         if self.resolver_task is not None:
             self.resolver_task.cancel()
+        if self.telemetry_emitter is not None:
+            await self.telemetry_emitter.shutdown()
         if self.store is not None:
             self.store.close()

@@ -61,10 +61,11 @@ def backends(monkeypatch):
 
 
 async def run_committee(base_port: int, packages, blocks: int, timeout_delay: int = 2_000,
-                        **params):
+                        profile: bool = False, **params):
     """Engines of ``packages`` (one package name per seat, keys of
-    ``tests/common.keys``) commit ``blocks`` blocks each; returns the
-    digests each engine committed, round by round, and the engines."""
+    ``tests/common.keys``, ``profile`` passed to ``Consensus.spawn``) commit
+    ``blocks`` blocks each; returns the digests each engine committed, round
+    by round, and the engines."""
     seeds = seeded(len(packages))
     engines, commits, sinks = [], [], []
     for i, name in enumerate(packages):
@@ -84,6 +85,7 @@ async def run_committee(base_port: int, packages, blocks: int, timeout_delay: in
         engine = await consensus.Consensus.spawn(
             pk, committee, consensus.Parameters(timeout_delay=timeout_delay, **params),
             crypto.SignatureService(sk), store.Store(), rx_mempool, tx_mempool, tx_commit,
+            profile=profile,
         )
         engines.append(engine)
         commits.append(tx_commit)

@@ -82,7 +82,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "mempool.batch_maker", "mempool.quorum_waiter", "mempool.processor",
                  "mempool.helper", "mempool.mempool", "node", "node.config", "node.node",
                  "node.__main__", "node.client", "parallel", "parallel.mesh",
-                 "crypto.native_ed25519", "crypto.cpu_batch"):
+                 "crypto.native_ed25519", "crypto.cpu_batch", "telemetry",
+                 "telemetry.registry", "telemetry.spans", "telemetry.trace",
+                 "telemetry.profiler", "telemetry.emitter", "telemetry.dtrace",
+                 "telemetry.resources", "telemetry.slo", "telemetry.validate"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:

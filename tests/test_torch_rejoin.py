@@ -188,10 +188,10 @@ def committee_of(package: str, seats, base: int):
     })
 
 
-def parameters_of(package: str, retention: int = RETENTION):
+def parameters_of(package: str):
     return PKG[package][0].Parameters(
         timeout_delay=1_000, sync_retry_delay=1_000, batch_vote_verification=True,
-        retention_rounds=retention,
+        retention_rounds=RETENTION,
     )
 
 
@@ -235,13 +235,12 @@ async def truncated(seat) -> bool:
     return True
 
 
-async def run_rejoin(tmp_path, packages, victim: int, base: int, wipe: bool, retentions=None):
-    """Engines of ``packages`` commit; ``victim`` crashes; the survivors
-    that keep a retention depth (``retentions``, default ``RETENTION``
-    each) compact past it; the victim restarts (on an empty store when
-    ``wipe``) and commits 3 more blocks. Returns the seats, the round the
-    victim had committed when it crashed, and its snapshot record then."""
-    retentions = retentions or [RETENTION] * len(packages)
+async def run_rejoin(tmp_path, packages, victim: int, base: int, wipe: bool):
+    """Engines of ``packages`` at ``RETENTION`` commit; ``victim`` crashes;
+    the survivors compact past it; the victim restarts (on an empty store
+    when ``wipe``) and commits 3 more blocks. Returns the seats, the round
+    the victim had committed when it crashed, and its snapshot record
+    then."""
     rng = random.Random(9)
     seeds = [rng.randbytes(32) for _ in packages]
     seats = [Seat(p, i, seeds[i], base, tmp_path) for i, p in enumerate(packages)]
@@ -252,7 +251,7 @@ async def run_rejoin(tmp_path, packages, victim: int, base: int, wipe: bool, ret
         leaders = [pk.data for pk in committees[packages[0]].sorted_keys()]
         for seat in sorted(seats, key=lambda s: leaders.index(s.pk.data), reverse=True):
             await seat.spawn(committees[seat.package],
-                             parameters_of(seat.package, retentions[seat.index]))
+                             parameters_of(seat.package))
 
         async def all_committed():
             return all(seat.commits for seat in seats)
@@ -262,7 +261,7 @@ async def run_rejoin(tmp_path, packages, victim: int, base: int, wipe: bool, ret
         await victim_seat.crash()
         before = max(b.round for b in victim_seat.blocks())
         victim_floor = await victim_seat.snapshot()
-        truncating = [s for s in seats if s is not victim_seat and retentions[s.index]]
+        truncating = [s for s in seats if s is not victim_seat]
 
         async def compacted_past_the_victim():
             for s in truncating:
@@ -277,7 +276,7 @@ async def run_rejoin(tmp_path, packages, victim: int, base: int, wipe: bool, ret
         cert_arena.reset()
         j_cert_arena.reset()
         await victim_seat.restart(committees[victim_seat.package],
-                                  parameters_of(victim_seat.package, retentions[victim]), wipe)
+                                  parameters_of(victim_seat.package), wipe)
 
         async def recovered():
             return len(victim_seat.blocks(victim_seat.generation)) >= 3
@@ -329,25 +328,28 @@ async def test_port_engine_restarts_warm_on_its_own_store(tmp_path):
 @async_test(timeout=120)
 async def test_mixed_committee_wiped_engine_rejoins_from_the_other_package(
         tmp_path, packages, victim, monkeypatch):
-    """The joiner's own package's survivor keeps its whole log (retention
-    0), so every snapshot the joiner is offered was written and served by
-    the other package's engines."""
+    """Every survivor truncates past the joiner, and the joiner's own
+    package's survivor answers its state requests with the frontier alone
+    (as a peer whose snapshot replies are rate-limited does), so the joiner
+    can neither catch up by walking the chain nor take a record of its own
+    package: every snapshot it is offered was written and served by the
+    other package's engines."""
     served = {"port": [], "reference": []}
+    joiner_package = packages[victim]
     for package, modules in (("port", (t_helper, t_statesync)),
                              ("reference", (j_helper, j_statesync))):
         for module in modules:
             def encode(round_, digest, snapshot, real=module.encode_state_response, package=package):
                 if snapshot is not None:
-                    served[package].append(snapshot)
+                    if package == joiner_package:
+                        snapshot = None
+                    else:
+                        served[package].append(snapshot)
                 return real(round_, digest, snapshot)
 
             monkeypatch.setattr(module, "encode_state_response", encode)
-    joiner_package = packages[victim]
-    retentions = [0 if p == joiner_package and i != victim else RETENTION
-                  for i, p in enumerate(packages)]
     seats, before, _ = await run_rejoin(tmp_path, packages, victim,
-                                        BASE + 20 + 10 * (victim == 0), wipe=True,
-                                        retentions=retentions)
+                                        BASE + 20 + 10 * (victim == 0), wipe=True)
     joiner = seats[victim]
     other = "port" if joiner_package == "reference" else "reference"
     assert joiner.installs, "the joiner installed no snapshot"

@@ -14,6 +14,14 @@ reference's, on the CPU.
   of the same size or none. The reference's ``TpuBackend`` sees the
   conftest's 8 virtual CPU devices; the port's ``visible_devices`` is
   patched to 8 ``cpu`` entries. An explicit ``sharded=`` argument wins.
+
+And the telemetry plane's, against ``hotstuff_tpu.telemetry``: under the
+same values of ``HOTSTUFF_TELEMETRY``, ``HOTSTUFF_TELEMETRY_DIR``,
+``HOTSTUFF_TELEMETRY_INTERVAL``, ``HOTSTUFF_DTRACE``, ``HOTSTUFF_FLIGHT_DIR``,
+``HOTSTUFF_FLIGHT_CAPACITY``, ``HOTSTUFF_PYPROF_INTERVAL_MS`` and
+``HOTSTUFF_TRACEMALLOC`` both packages enable the same planes and name the
+same paths, periods and capacities. ``HOTSTUFF_PYPROF`` (read by the node)
+is held in ``tests/test_torch_telemetry.py``.
 """
 
 import pytest
@@ -21,6 +29,8 @@ import torch
 
 import hotstuff_tpu.crypto as j_crypto
 import hotstuff_tpu.crypto.batching as j_batching
+import hotstuff_tpu.telemetry as j_tm
+import hotstuff_tpu_torch.telemetry as t_tm
 import hotstuff_tpu_torch.crypto as t_crypto
 import hotstuff_tpu_torch.crypto.batching as t_batching
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
@@ -116,3 +126,84 @@ def test_explicit_sharded_argument_wins(monkeypatch, eight_devices, value, shard
     monkeypatch.setenv("HOTSTUFF_TPU_SHARDED", value)
     size = 8 if sharded else None
     assert mesh_sizes(sharded=sharded) == (size, size)
+
+
+TELEMETRY_SWITCHES = (
+    "HOTSTUFF_TELEMETRY", "HOTSTUFF_TELEMETRY_DIR", "HOTSTUFF_TELEMETRY_INTERVAL",
+    "HOTSTUFF_DTRACE", "HOTSTUFF_FLIGHT_DIR", "HOTSTUFF_FLIGHT_CAPACITY",
+    "HOTSTUFF_PYPROF_INTERVAL_MS", "HOTSTUFF_TRACEMALLOC",
+)
+
+
+@pytest.fixture
+def telemetry_env(monkeypatch):
+    for name in TELEMETRY_SWITCHES:
+        monkeypatch.delenv(name, raising=False)
+
+    def apply(**values):
+        for name, value in values.items():
+            monkeypatch.setenv(name, value)
+        for tm in (t_tm, j_tm):
+            tm.reset_for_tests()
+
+    yield apply
+    for name in TELEMETRY_SWITCHES:
+        monkeypatch.delenv(name, raising=False)
+    for tm in (t_tm, j_tm):
+        tm.reset_for_tests()
+
+
+def telemetry_view(tm, node: str) -> dict:
+    """What a package makes of the environment: planes, paths, periods."""
+    from importlib import import_module
+
+    trace = import_module(tm.__name__ + ".trace")
+    profiler = import_module(tm.__name__ + ".profiler")
+    enabled = tm.enabled()
+    tm.enable()
+    return {
+        "enabled": enabled, "dtrace": tm.dtrace_enabled(),
+        "stream": tm.env_stream_path(node), "flight": tm.env_flight_path(node),
+        "interval_s": tm.env_interval_s(), "flight_capacity": trace.TraceBuffer().capacity,
+        "pyprof_interval_ms": profiler.env_interval_ms(),
+    }
+
+
+@pytest.mark.parametrize("values", [
+    {},
+    {"HOTSTUFF_TELEMETRY": "/data/t.jsonl"},
+    {"HOTSTUFF_TELEMETRY_DIR": "/data/run", "HOTSTUFF_TELEMETRY_INTERVAL": "0.5"},
+    {"HOTSTUFF_TELEMETRY": "/data/t.jsonl", "HOTSTUFF_TELEMETRY_DIR": "/data/run"},
+    {"HOTSTUFF_TELEMETRY_DIR": "/data/run", "HOTSTUFF_DTRACE": "0",
+     "HOTSTUFF_FLIGHT_DIR": "/data/flight"},
+    {"HOTSTUFF_DTRACE": "1", "HOTSTUFF_TELEMETRY_INTERVAL": "soon",
+     "HOTSTUFF_FLIGHT_CAPACITY": "4096", "HOTSTUFF_PYPROF_INTERVAL_MS": "0.5"},
+    {"HOTSTUFF_FLIGHT_CAPACITY": "7", "HOTSTUFF_PYPROF_INTERVAL_MS": "x"},
+], ids=lambda v: "+".join(k.removeprefix("HOTSTUFF_") for k in v) or "unset")
+def test_telemetry_switches_mean_the_same_in_both_packages(telemetry_env, values):
+    telemetry_env(**values)
+    node = "pk/AbC+12=="
+    assert telemetry_view(t_tm, node) == telemetry_view(j_tm, node)
+
+
+@pytest.mark.parametrize("value, tracing", [("1", True), ("", False)])
+def test_tracemalloc_switch_in_both_packages(telemetry_env, value, tracing):
+    import tracemalloc
+
+    from hotstuff_tpu.telemetry import resources as j_resources
+    from hotstuff_tpu_torch.telemetry import resources as t_resources
+
+    telemetry_env(HOTSTUFF_TRACEMALLOC=value)
+    gauges = []
+    try:
+        for tm, resources in ((t_tm, t_resources), (j_tm, j_resources)):
+            tm.enable()
+            resources.install()
+            assert tracemalloc.is_tracing() is tracing
+            gauges.append(sorted(k for k in tm.get_registry().snapshot()["gauges"]
+                                 if k.startswith("resource.tracemalloc")))
+            tracemalloc.stop()
+    finally:
+        tracemalloc.stop()
+    assert gauges[0] == gauges[1]
+    assert bool(gauges[0]) is tracing
