@@ -284,7 +284,37 @@ unguarded (any failure ends the run with a non-zero exit):
    plain versions at the bench's widths, limb for limb and timed as in
    phase 5: K1 over the fresh R lanes (mf = 2048) and over every uncached
    lane (m = 4096), K2 + K3 at [2048] x 33 and x 64, K4 + K3 at [4096] x
-   64, the verdict and the root alone.
+   64, the verdict and the root alone;
+15. faultline on the card (``hotstuff_tpu_torch/faultline``), with telemetry
+   on and ``set_backend("cuda-batched")`` made after it, the cert arena
+   on, the port's ``run_scenario`` at a 1 s timeout and each scenario read
+   from ``benchmark/scenarios/`` by path. Around each run the counts are
+   zeroed and ``crypto.dispatch.cuda`` read, under a lock that every card
+   call holds. Each run must be safe and recovered, its trace the compiled
+   schedule's, every transition applied, its faults fired (dropped frames
+   where links are cut, crashes and restarts counted, proposals
+   suppressed under a silent leader, an actor spawned for
+   ``stale_vote_flood``), decompress, K2 signed, K3 and the verdict
+   launched, K4 and the root alone not, and the counter moved by exactly
+   the verdict's launches:
+   a. ``crash.json``, ``partition.json`` and ``delay-reorder.json`` at
+      N = 4, and ``rejoin.json`` at retention 16 with the frontier
+      availability audit; each run's trace and snapshot records streamed
+      to a file;
+   b. ``storm-n20.json`` at N = 20 (a crash, a partition, lossy links, a
+      silent leader and a stale-vote flooder);
+   c. an 8 s scenario with no events at N = 4, its stream fed to the port's
+      ``Watchtower`` one line at a time: no alert may be raised, and some
+      round must be scored; then a's crash run, whose alerts and
+      scoreboard are printed;
+   d. phase 11's data plane (ports 11100-11135) with
+      ``HOTSTUFF_FAULTLINE`` naming a scenario in which node 2 runs
+      ``batch_withhold`` from 2 s to 8 s of 10 s. The four nodes run in
+      this one process, each booted in a task of its own so that each
+      keeps its own identity, under the one plane the first armed (the
+      reference arms one plane per process, one node each). Every sample
+      must commit, ``faultline.injected.acks_withheld`` must rise, and the
+      cached path's kernels launch (K4 never).
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -303,7 +333,8 @@ row's times at 8 shards with both MSMs' results, and its
 ``sharded_ms_per_qc`` by D (cached, uncached) beside ``unsharded_ms_per_qc``;
 ``launches_bench_cached`` and ``launches_bench_uncached`` from phase 14's two
 runs, and its ``bench_*`` keys at the bench's widths, the decompression's
-``bench_uncached_*`` at every uncached lane)
+``bench_uncached_*`` at every uncached lane; ``launches_faultline`` from all
+of phase 15's runs together)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -353,7 +384,7 @@ FD_LIMITS = raise_fd_limit()
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import bench_torch  # noqa: E402
-from hotstuff_tpu_torch import crypto, telemetry  # noqa: E402
+from hotstuff_tpu_torch import crypto, faultline, telemetry  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
@@ -398,6 +429,7 @@ from hotstuff_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hotstuff_tpu_torch.store import LogEngine, Store  # noqa: E402
 from hotstuff_tpu_torch.telemetry import profiler as pyprof  # noqa: E402
 from hotstuff_tpu_torch.telemetry.validate import validate_stream  # noqa: E402
+from hotstuff_tpu_torch.telemetry.watchtower import Watchtower, WatchtowerConfig  # noqa: E402
 from hotstuff_tpu_torch.utils import kernel_build  # noqa: E402
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder  # noqa: E402
 from hotstuff_tpu_torch.utils.kernel_times import PROFILER_NAMES, kernel_ms  # noqa: E402
@@ -562,6 +594,27 @@ PHASE12_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict"
 # reference's combine drops a shard).
 TREE_WIDTHS = (1, 2, 3, 4, 6, 8)
 MESH_WIDTHS = (1, 2, 3, 4, 8)
+# Phase 15: the reference's committed fault scenarios (read as data, by
+# path) through the port's faultline on committees under cuda-batched, at
+# the harness's default timeout of 1 s (hotstuff_tpu/faultline/
+# harness.py:76). a: four scenarios at N = 4, rejoin.json at retention 16
+# (as tests/test_statesync_sim.py runs it); b: storm-n20.json at N = 20,
+# committee_scale's default size; c: an 8 s scenario with no events at
+# N = 4 streamed to the watchtower; d: phase 11's data plane with node 2
+# withholding its acks from 2 s to 8 s of a 10 s scenario. Ports
+# 11000-11199: below the H100 host's ephemeral range, clear of phase 9's
+# profiled run (10800-10899) and of the card tests (10700-10747,
+# 10900-10931).
+SCENARIO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "scenarios")
+FAULT_RUNS = (  # (scenario file, N, base port, retention rounds)
+    ("crash.json", 4, 11000, 0), ("partition.json", 4, 11010, 0),
+    ("delay-reorder.json", 4, 11020, 0), ("rejoin.json", 4, 11030, 16),
+)
+STORM_RUN = ("storm-n20.json", 20, 11050, 0)
+QUIET_PORTS, WITHHOLD_PORTS, FAULT_TIMEOUT_MS = 11040, 11100, 1_000
+# Scenarios whose faults cut links: each must count dropped frames.
+DROPPING = ("partition.json", "delay-reorder.json", "storm-n20.json")
+FAULT_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 
 
 class SmokeFailure(RuntimeError):
@@ -1241,6 +1294,21 @@ def node_path(keys, committee, qcs, seed: int):
 # -- phase 9: the consensus engine on the card ----------------------------------
 
 
+def gate_inner(backend: BatchingBackend) -> threading.Lock:
+    """Wraps the card backend's ``verify_batch`` in a lock, so that the
+    counts read at a run's edges under it are not straddled by an inner
+    call (the batching backend's flusher thread makes every call)."""
+    gate = threading.Lock()
+    real = backend.inner.verify_batch
+
+    def gated(*args):
+        with gate:
+            return real(*args)
+
+    backend.inner.verify_batch = gated
+    return gate
+
+
 async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int = 0,
                     profile: bool = False) -> dict:
     """An in-process committee of ``n`` port engines under the active
@@ -1285,15 +1353,7 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
     # edges take this gate, which every inner call holds, so no call is
     # counted on one side of an edge and launches on the other.
     inner = getattr(backend, "inner", None)
-    gate = threading.Lock()
-    if inner is not None:
-        real_verify = inner.verify_batch
-
-        def gated_verify(*args):
-            with gate:
-                return real_verify(*args)
-
-        inner.verify_batch = gated_verify
+    gate = gate_inner(backend) if inner is not None else threading.Lock()
 
     # Spawned in descending leader order: the leader of round 1 proposes as
     # soon as it starts, and the votes for its block, sent best effort to
@@ -2232,9 +2292,12 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
     return launches, row, qc_rows
 
 
-async def conveyor(seed: int, device) -> dict:
+async def conveyor(seed: int, device, base: int = CONVEYOR_PORTS,
+                   scenario: str | None = None) -> dict:
     """Four port nodes with two workers each, and four sharded port clients
-    at 5,000 tx/s each, in this process; see phase 11 in the docstring."""
+    at 5,000 tx/s each, in this process; see phase 11 in the docstring.
+    With ``scenario``, the nodes boot under ``HOTSTUFF_FAULTLINE=scenario``
+    (phase 15d)."""
     from hotstuff_tpu_torch.mempool import WorkerEntry
     from hotstuff_tpu_torch.mempool.dataplane import AvailabilityCert, WorkerSeatTable
     from hotstuff_tpu_torch.mempool.dataplane import messages as dpm
@@ -2243,7 +2306,7 @@ async def conveyor(seed: int, device) -> dict:
     from hotstuff_tpu_torch.node import Secret
     from hotstuff_tpu_torch.node.client import run_sharded_client
 
-    n, base = CONVEYOR_N, CONVEYOR_PORTS
+    n = CONVEYOR_N
     rng = random.Random(seed * 7919 + 23)
     secrets = [Secret(*crypto.generate_keypair(seed=rng.randbytes(32))) for _ in range(n)]
 
@@ -2265,6 +2328,8 @@ async def conveyor(seed: int, device) -> dict:
                           workers=CONVEYOR_WORKERS),
     ).write(f"{tmp}/parameters.json")
     os.environ["HOTSTUFF_CRYPTO_BACKEND"] = "cuda-batched"
+    if scenario is not None:
+        os.environ["HOTSTUFF_FAULTLINE"] = scenario
     crypto._BACKEND = None
     cert_arena.reset()
 
@@ -2385,6 +2450,9 @@ async def conveyor(seed: int, device) -> dict:
             task.cancel()
         await run.stop()
         del os.environ["HOTSTUFF_CRYPTO_BACKEND"]
+        if scenario is not None:
+            del os.environ["HOTSTUFF_FAULTLINE"]
+            faultline.uninstall()
     return out
 
 
@@ -3297,6 +3365,215 @@ def bench_phase(card: str, device, imad_per_s: float):
     return cached, uncached, rows
 
 
+# -- phase 15: faultline on the card -----------------------------------------
+
+
+async def scenario_run(scenario, n: int, base: int, retention: int, stream: str | None) -> dict:
+    """``faultline.run_scenario`` at phase 15's timeout, its trace and
+    snapshot records streamed to ``stream`` (the committee_scale bench's
+    in-process stream: one emitter for the whole committee, the trace ring
+    cleared at its start)."""
+    emitter = None
+    if stream is not None:
+        emitter = telemetry.TelemetryEmitter(
+            telemetry.get_registry(), stream, node=f"committee-{n}", interval_s=1.0,
+            trace=telemetry.trace_buffer())
+        telemetry.trace_buffer().clear()
+        emitter.emit()
+        emitter.spawn()
+    try:
+        return await faultline.run_scenario(scenario, n, base_port=base,
+                                            timeout_delay=FAULT_TIMEOUT_MS,
+                                            retention_rounds=retention)
+    finally:
+        if emitter is not None:
+            await emitter.shutdown()
+
+
+def fault_run(name: str, scenario, n: int, base: int, retention: int, gate, stream=None) -> dict:
+    """One scenario under the installed ``cuda-batched`` backend, its kernel
+    launches and ``crypto.dispatch.cuda`` read at its edges under ``gate``.
+    Fails unless the verdict is safe and recovered (and the frontier audit
+    passes where retention is on), the trace is the compiled schedule's,
+    every transition was applied, the faults fired, the cached path's
+    kernels launched and K4 and the root alone did not, and the counter
+    moved by exactly the verdict's launches."""
+    names = [f"n{i:03d}" for i in range(n)]
+    schedule = scenario.compile(names)
+    transitions = sum(1 + (e.until is not None) for e in schedule.events)
+    cert_arena.reset()
+    registry = telemetry.get_registry()
+    with gate:
+        reset_launches()
+        before = registry.snapshot()["counters"]
+    t = time.perf_counter()
+    result = asyncio.run(scenario_run(scenario, n, base, retention, stream))
+    wall_s = time.perf_counter() - t
+    with gate:
+        launches = launch_counts()
+        counters = telemetry.diff_counters(before, registry.snapshot()["counters"])
+    dispatched = counters.get("crypto.dispatch.cuda", 0)
+    verdict = result["verdict"]
+    counts = verdict["injections"]["counts"]
+    check(faultline.hooks.plane is None, f"{name}: the plane stayed installed")
+    check(verdict["safety"]["ok"], f"{name}: unsafe: {verdict['safety']}")
+    check(verdict["liveness"]["recovered"], f"{name}: not recovered: {verdict['liveness']}")
+    if retention:
+        check(verdict["frontier_availability"]["ok"],
+              f"{name}: frontier availability {verdict['frontier_availability']}")
+    check(result["trace"] == schedule.trace(), f"{name}: the trace is not the compiled schedule's")
+    check(counts["events_applied"] == transitions,
+          f"{name}: {counts['events_applied']} of {transitions} transitions applied")
+    if name in DROPPING:
+        check(counts["send_drops"] > 0, f"{name}: no frame dropped: {counts}")
+    for kind, counter in (("crash", "crashes"), ("restart", "restarts")):
+        if any(e.kind == kind for e in schedule.events):
+            check(counters.get(f"faultline.injected.{counter}", 0) > 0, f"{name}: no {kind} counted")
+    behaviors = {e.params["behavior"] for e in schedule.events if e.kind == "byzantine"}
+    if "silent_leader" in behaviors:
+        check(counts["proposals_suppressed"] > 0, f"{name}: the silent leader proposed: {counts}")
+    if behaviors - {"silent_leader", "batch_withhold"}:
+        check(counters.get("faultline.injected.byzantine_actors", 0) > 0,
+              f"{name}: no byzantine actor spawned")
+    for kernel in FAULT_KERNELS:
+        check(launches[kernel] > 0, f"{name}: kernel {kernel} never launched: {launches}")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"{name}: K4 or the root alone launched: {launches}")
+    check(dispatched == launches["verdict"],
+          f"{name}: crypto.dispatch.cuda moved by {dispatched}, the verdict launched "
+          f"{launches['verdict']} times")
+    return {"verdict": verdict, "launches": launches, "dispatched": dispatched, "wall_s": wall_s,
+            "commits": verdict["commits"], "recovery_s": verdict["liveness"]["recovery_s"]}
+
+
+def watch_stream(path: str) -> Watchtower:
+    """A port ``Watchtower`` fed every record of the stream at ``path``
+    through ``ingest_record``, one line at a time, as the reference's
+    follower feeds it, then flushed."""
+    watch = Watchtower(WatchtowerConfig())
+    with open(path) as f:
+        for line in f:
+            if line.strip():
+                watch.ingest_record(json.loads(line), source=path)
+    watch.flush()
+    return watch
+
+
+def withhold_scenario(tmp: str) -> str:
+    """Phase 15d's scenario file: node 2 withholds its acks from 2 s to 8 s."""
+    path = os.path.join(tmp, "withhold.json")
+    faultline.Scenario(
+        name="withhold-n2", seed=2201, duration_s=10.0,
+        events=[{"kind": "byzantine", "node": 2, "behavior": "batch_withhold",
+                 "at": 2.0, "until": 8.0}],
+    ).save(path)
+    return path
+
+
+def faultline_phase(seed: int, card: str, device) -> dict:
+    """Phase 15. Returns the launches of all its runs together."""
+    t_phase = time.perf_counter()
+    telemetry.reset_for_tests()
+    telemetry.enable()  # before the backend is made: its counters record
+    crypto.set_backend("cuda-batched")
+    batched = crypto.get_backend()
+    check(isinstance(batched, BatchingBackend) and isinstance(batched.inner, CudaBackend),
+          f"cuda-batched installed {batched!r}")
+    os.environ["HOTSTUFF_CERT_ARENA"] = "1"
+    gate = gate_inner(batched)
+    total = dict.fromkeys(launch_counts(), 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_faultline_")
+    try:
+        # a, b: the scenarios, the crash run streamed for part c.
+        streams = {}
+        for name, n, base, retention in FAULT_RUNS + (STORM_RUN,):
+            scenario = faultline.Scenario.load(os.path.join(SCENARIO_DIR, name))
+            streams[name] = os.path.join(tmp, f"telemetry-{scenario.name}.jsonl")
+            run = fault_run(name, scenario, n, base, retention, gate, streams[name])
+            for k, v in run["launches"].items():
+                total[k] += v
+            v = run["verdict"]
+            counts = {k: c for k, c in v["injections"]["counts"].items() if c}
+            audit = v.get("frontier_availability")
+            print(f"faultline on {card}: {name} at N={n} (seed {scenario.seed}, {scenario.duration_s:g} s,"
+                  f" timeout {FAULT_TIMEOUT_MS} ms, retention {retention}): safe, recovered "
+                  f"{run['recovery_s']} s after the last heal at {v['liveness']['heal_t']:g} s; "
+                  f"commits per node {sorted(set(run['commits'].values()))}, post-heal "
+                  f"{min(v['liveness']['post_heal_commits'].values())}-"
+                  f"{max(v['liveness']['post_heal_commits'].values())}; injections {counts}"
+                  + (f"; frontier audit ok, {audit['checked']} blocks, floors "
+                     f"{sorted(set(audit['floors'].values()))}" if audit else "")
+                  + f"; launches " + ", ".join(f"{k} {c}" for k, c in sorted(run["launches"].items()))
+                  + f"; crypto.dispatch.cuda +{run['dispatched']} = verdict launches; "
+                  f"run {run['wall_s']:.1f} s")
+
+        # c: the watchtower on a fault-free run, then on a's crash run.
+        quiet = faultline.Scenario(name="quiet-n4", seed=seed + 1500, duration_s=8.0, events=[])
+        quiet_stream = os.path.join(tmp, "telemetry-quiet-n4.jsonl")
+        run = fault_run("quiet", quiet, 4, QUIET_PORTS, 0, gate, quiet_stream)
+        for k, v in run["launches"].items():
+            total[k] += v
+        report = validate_stream(quiet_stream)
+        check(report["ok"], f"the fault-free stream fails its schemas: {report['problems'][:3]}")
+        watch = watch_stream(quiet_stream)
+        board = watch.scoreboard()
+        check(watch.alerts == [], f"the watchtower raised {len(watch.alerts)} alerts on a fault-free "
+              f"run: {[(a['detector'], a['accused']) for a in watch.alerts]}")
+        check(board["rounds"] > 0, "the watchtower scored no round of the fault-free run")
+        print(f"faultline on {card}: watchtower on the fault-free run (N=4, 8 s, "
+              f"{sum(report['counts'].values())} records {report['counts']}): 0 alerts, "
+              f"{board['rounds']} rounds scored, frontier {board['frontier']}; scores "
+              + ", ".join(f"{p[:6]} {s['score']}" for p, s in sorted(board['peers'].items()))
+              + f"; run {run['wall_s']:.1f} s")
+        watch = watch_stream(streams["crash.json"])
+        board = watch.scoreboard()
+        print(f"faultline on {card}: watchtower on the crash run: {len(watch.alerts)} alerts "
+              f"{[(a['detector'], a['accused'], a['confidence']) for a in watch.alerts]}; "
+              f"{board['rounds']} rounds scored, frontier {board['frontier']}; scores "
+              + ", ".join(f"{p[:6]} {s['score']} (participation {s['participation']})"
+                          for p, s in sorted(board['peers'].items())))
+    finally:
+        del batched.inner.verify_batch  # the class's method again
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # d: batch_withhold through the node hook, on phase 11's data plane.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_withhold_")
+    try:
+        registry = telemetry.get_registry()
+        withheld0 = registry.snapshot()["counters"].get("faultline.injected.acks_withheld", 0)
+        t = time.perf_counter()
+        run = asyncio.run(conveyor(seed, device, WITHHOLD_PORTS, withhold_scenario(tmp)))
+        wall_s = time.perf_counter() - t
+        withheld = registry.snapshot()["counters"].get("faultline.injected.acks_withheld", 0) - withheld0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = run["launches"]
+    for k, v in launches.items():
+        total[k] += v
+    c = run["counts"]
+    print(f"faultline on {card}: batch_withhold on node 2 from 2 s to 8 s of a 10 s scenario "
+          f"(HOTSTUFF_FAULTLINE, one shared plane, each node booted in a task of its own), phase "
+          f"11's data plane at {CONVEYOR_RATE} tx/s: {withheld} acks withheld; over "
+          f"{run['window_s']:.2f} s {run['tx_per_s']:.1f} committed tx/s, e2e p50 "
+          f"{run['p50_ms']:.1f} ms, p95 {run['p95_ms']:.1f} ms; {run['expected']} samples, "
+          f"{run['missing']} not committed; certificates formed {c['certs_formed']} (failed "
+          f"{c['certs_failed']}), {run['timeouts']} timeouts; launches "
+          + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())) + f"; run {wall_s:.1f} s")
+    check(withheld > 0, "node 2 withheld no ack")
+    check(run["missing"] == 0, f"{run['missing']} of {run['expected']} sample transactions never "
+          "committed under batch_withhold")
+    for name in FAULT_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched under batch_withhold")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"the withholding run launched K4 or the root alone: {launches}")
+    telemetry.reset_for_tests()
+    telemetry.disable()
+    cert_arena.reset()
+    print(f"faultline on {card}: phase 15 in {time.perf_counter() - t_phase:.1f} s; launches in all "
+          + ", ".join(f"{k} {v}" for k, v in sorted(total.items())))
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3473,6 +3750,10 @@ def main() -> int:
     # then the kernels at its widths
     bench_cached, bench_uncached, bench_rows = bench_phase(card, device, imad_per_s)
 
+    # 15. faultline: the reference's fault scenarios on committees that
+    # verify their QCs on the card, the watchtower, and batch_withhold
+    faultline_launches = faultline_phase(args.seed, card, device)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict", "verdict_tree"):
@@ -3493,6 +3774,7 @@ def main() -> int:
             "launches_sharded": sharded_launches_[name],
             "launches_bench_cached": bench_cached[name],
             "launches_bench_uncached": bench_uncached[name],
+            "launches_faultline": faultline_launches[name],
         }
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
@@ -3524,6 +3806,7 @@ def main() -> int:
         "launches_sharded": sharded_launches_["sha512"],
         "launches_bench_cached": bench_cached["sha512"],
         "launches_bench_uncached": bench_uncached["sha512"],
+        "launches_faultline": faultline_launches["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,9 +25,9 @@ the persisted voting state, whose record is the reference's byte for byte.
 The telemetry is the reference's: the ``consensus.*`` counters and
 gauges, the round tracer, ``record_commit`` and the commit dtrace event,
 the profiler's stage tags (``STAGE_SEEDS``) and, with ``profile=True``,
-the ``consensus.stage.<kind>.{ns,calls}`` counters. Left out: the
-faultline audit line and the native vote pre-stage hook
-(``on_round_advance``). Beside the telemetry, the core keeps the plain
+the ``consensus.stage.<kind>.{ns,calls}`` counters, and so is the
+faultline audit line (``FaultlineCommit r=… d=…``). Left out: the native
+vote pre-stage hook (``on_round_advance``). Beside the telemetry, the core keeps the plain
 integer counters that its callers read whether telemetry is on or not
 (``qcs_formed``, ``blocks_committed``, ``timeouts_fired``,
 ``backend_failures``).
@@ -48,6 +48,7 @@ import logging
 
 from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import BackendUnavailable, CryptoError, PublicKey, SignatureService
+from hotstuff_tpu_torch.faultline import hooks as _faultline
 from hotstuff_tpu_torch.network import SimpleSender
 from hotstuff_tpu_torch.store import Store, StoreError
 from hotstuff_tpu_torch.utils.serde import Decoder, Encoder, SerdeError
@@ -339,6 +340,16 @@ class Core:
                             detail=f"r{blk.round}",
                         )
             log.debug("Committed %r", blk)
+            if _faultline.plane is not None:
+                # Chaos-run audit line (INFO so it survives the default
+                # verbosity): the multi-process checker reconstructs each
+                # node's (round, digest) commit stream from these. One
+                # module-global load when faultline is off.
+                log.info(
+                    "FaultlineCommit r=%d d=%s",
+                    blk.round,
+                    blk.digest().data.hex(),
+                )
             # Committed blocks (in commit order) feed the elector's
             # participation window (no-op for round-robin).
             self.leader_elector.update(blk)

@@ -1,8 +1,8 @@
 """Conveyor back-pressure: bounded ingress with client-visible shedding
 and a store-depth watermark that throttles batch sealing.
 
-Port copy of ``hotstuff_tpu/mempool/dataplane/backpressure.py``; its
-telemetry gauge and counter are the plain attributes ``depth`` and
+Port copy of ``hotstuff_tpu/mempool/dataplane/backpressure.py``, with its
+telemetry gauge and counter beside the plain attributes ``depth`` and
 ``transitions``.
 
 Under overload the system degrades GRACEFULLY (latency rises, throughput
@@ -17,12 +17,17 @@ until the process collapses. Two mechanisms compose end to end:
 - :class:`Watermark`: the interior signal. Worker store depth (sealed
   batches not yet committed) crossing the HIGH watermark gates sealing;
   the ingress then fills and sheds at the edge. Sealing resumes only at
-  the LOW watermark (hysteresis: no flapping at the boundary).
+  the LOW watermark (hysteresis: no flapping at the boundary). The
+  depth rides the ``mempool.worker.store_depth`` gauge and every
+  transition into the gated state counts into
+  ``mempool.worker.throttle_events``.
 """
 
 from __future__ import annotations
 
 import asyncio
+
+from hotstuff_tpu_torch import telemetry
 
 __all__ = ["BoundedIngress", "Watermark"]
 
@@ -68,7 +73,7 @@ class Watermark:
     ``wait_ok`` parks the caller while gated.
     """
 
-    def __init__(self, high: int, low: int) -> None:
+    def __init__(self, high: int, low: int, name: str = "mempool.worker") -> None:
         if low > high:
             raise ValueError(f"low watermark {low} above high {high}")
         self.high = high
@@ -77,6 +82,8 @@ class Watermark:
         self.transitions = 0
         self._ok = asyncio.Event()
         self._ok.set()
+        self._g_depth = telemetry.gauge(f"{name}.store_depth")
+        self._m_throttle = telemetry.counter(f"{name}.throttle_events")
 
     @property
     def gated(self) -> bool:
@@ -84,9 +91,11 @@ class Watermark:
 
     def update(self, depth: int) -> None:
         self.depth = depth
+        self._g_depth.set(depth)
         if not self.gated and depth >= self.high:
             self._ok.clear()
             self.transitions += 1
+            self._m_throttle.inc()
         elif self.gated and depth <= self.low:
             self._ok.set()
             self.transitions += 1

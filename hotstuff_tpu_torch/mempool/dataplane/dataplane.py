@@ -1,9 +1,10 @@
 """Conveyor composition root: spawn worker shards, track store depth,
 resolve committed digests back to batches.
 
-Port copy of ``hotstuff_tpu/mempool/dataplane/dataplane.py``, less its
-telemetry and dtrace calls: the resolver's counts are the plain ints
-``batches_resolved``, ``batches_fetched`` and ``unresolved``.
+Port copy of ``hotstuff_tpu/mempool/dataplane/dataplane.py`` with its
+telemetry (``mempool.resolver.*``) and its dtrace ``resolved`` events.
+Beside them the resolver keeps the plain ints ``batches_resolved``,
+``batches_fetched`` and ``unresolved``.
 
 ``DataPlane`` owns the per-node worker set plus the shared store-depth
 :class:`~.backpressure.Watermark`: every sealed batch raises the depth,
@@ -23,8 +24,10 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from collections import OrderedDict
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto import PublicKey, SignatureService
 from hotstuff_tpu_torch.store import Store
 
@@ -136,6 +139,13 @@ class CommitResolver:
         self.tx_out = tx_out
         self.tx_mempool = tx_mempool
         self.dataplane = dataplane
+        self._m_resolved = telemetry.counter("mempool.resolver.batches_resolved")
+        self._m_fetched = telemetry.counter("mempool.resolver.batches_fetched")
+        self._m_unresolved = telemetry.counter("mempool.resolver.unresolved")
+        self._h_wait = telemetry.histogram("mempool.resolver.fetch_wait_ms")
+        # Lifeline node label: the dataplane knows whose commit stream
+        # this is; a standalone resolver (tests) traces as "".
+        self._node_label = repr(dataplane.name) if dataplane is not None else ""
         self.batches_resolved = 0  # found in the local store
         self.batches_fetched = 0  # pulled through the synchronizer
         self.unresolved = 0  # timed out
@@ -156,13 +166,30 @@ class CommitResolver:
                     self.dataplane.note_committed(block.payload)
             await self.tx_out.put(block)
 
+    def _trace_resolved(self, digests, detail: str) -> None:
+        if not telemetry.dtrace_enabled():
+            return
+        for d in digests:
+            # Lifeline terminal mark: the batch bytes are materialized on
+            # this node's commit path (timeline closes here; a committed-
+            # but-never-resolved batch leaves this edge open).
+            telemetry.dtrace_event(
+                self._node_label,
+                telemetry.intern_label(d.data),
+                "resolved",
+                detail=detail,
+            )
+
     async def _resolve(self, block) -> None:
         missing = [d for d in block.payload if await self.store.read(d.data) is None]
+        self._m_resolved.inc(len(block.payload) - len(missing))
         self.batches_resolved += len(block.payload) - len(missing)
         if not missing:
+            self._trace_resolved(block.payload, "local")
             return
         # The certified quorum held the batch when it was ordered; pull it
         # through the mempool synchronizer's fetch/retry machinery.
+        t0 = time.monotonic()
         await self.tx_mempool.put(Synchronize(missing, block.author))
         try:
             await asyncio.wait_for(
@@ -172,11 +199,26 @@ class CommitResolver:
         except asyncio.TimeoutError:
             # Impossible with <= f faults; surfaced rather than wedging the
             # commit stream.
+            self._m_unresolved.inc(len(missing))
             self.unresolved += len(missing)
             log.error(
                 "commit-path resolution timed out for %d batch(es) of %r",
                 len(missing),
                 block,
             )
+            # The locally-present subset still resolved; the timed-out
+            # digests leave their lifeline open (the attribution reports
+            # the open edge, never invents a close).
+            unresolved = set(missing)
+            self._trace_resolved(
+                [d for d in block.payload if d not in unresolved], "local"
+            )
             return
+        self._m_fetched.inc(len(missing))
         self.batches_fetched += len(missing)
+        self._h_wait.observe((time.monotonic() - t0) * 1e3)
+        missing_set = set(missing)
+        self._trace_resolved(
+            [d for d in block.payload if d not in missing_set], "local"
+        )
+        self._trace_resolved(missing, "fetched")

@@ -2,9 +2,9 @@
 user-supplied handler (reference ``network/src/receiver.rs:38-88``).
 
 Port copy of ``hotstuff_tpu/network/receiver.py`` with its telemetry
-counters (``net.frames_in``, ``net.bytes_in``), less the faultline ingress
-filter. Frames and ACKs are the
-reference's: 4-byte big-endian length prefix, ``b"Ack"`` replies.
+counters (``net.frames_in``, ``net.bytes_in``) and the faultline ingress
+filter (``side: "recv"`` link rules). Frames and ACKs are the reference's:
+4-byte big-endian length prefix, ``b"Ack"`` replies.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import logging
 import struct
 
 from hotstuff_tpu_torch import telemetry
+from hotstuff_tpu_torch.faultline import hooks as _faultline
 
 log = logging.getLogger("network")
 
@@ -164,6 +165,25 @@ class Receiver:
                     break  # clean EOF
                 m_frames.inc(len(frames))
                 m_bytes.inc(sum(len(f) + 4 for f in frames))
+                # Faultline ingress filter (``side: "recv"`` link rules):
+                # a dropped frame vanishes before the ACK — the sender
+                # sees exactly what a lossy ingress NIC produces; a delay
+                # stalls this in-order connection, as real queueing would.
+                plane = _faultline.plane
+                if plane is not None:
+                    kept = []
+                    for frame in frames:
+                        plan = plane.filter_recv(self.address)
+                        if plan is not None:
+                            action, delay = plan
+                            if delay > 0:
+                                await asyncio.sleep(delay)
+                            if action == "drop":
+                                continue
+                        kept.append(frame)
+                    frames = kept
+                    if not frames:
+                        continue
                 if self.auto_ack:
                     for _ in frames:
                         write_frame(writer, b"Ack")

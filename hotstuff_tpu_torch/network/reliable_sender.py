@@ -1,8 +1,8 @@
 """At-least-once sender (reference ``network/src/reliable_sender.rs``).
 
 Port copy of ``hotstuff_tpu/network/reliable_sender.py`` with its telemetry
-counters (``net.frames_out``, ``net.bytes_out``, ``net.writes``), less the
-faultline link filter.
+counters (``net.frames_out``, ``net.bytes_out``, ``net.writes``) and the
+faultline link filter (drop, and delay through a side task).
 
 ``send`` returns a ``CancelHandler`` — a future resolved with the peer's ACK
 bytes. Per-peer connection tasks reconnect with exponential backoff (200 ms,
@@ -35,6 +35,7 @@ import random
 from collections import deque
 
 from hotstuff_tpu_torch import telemetry
+from hotstuff_tpu_torch.faultline import hooks as _faultline
 
 from .budget import BUDGET
 from .receiver import read_frame, write_frame
@@ -211,6 +212,7 @@ class ReliableSender:
     def __init__(self) -> None:
         self._connections: dict[tuple[str, int], _Connection] = {}
         self._rng = random.Random()
+        self._delayed: set[asyncio.Task] = set()
 
     def _connection(self, address: tuple[str, int]) -> _Connection:
         conn = self._connections.get(address)
@@ -229,6 +231,34 @@ class ReliableSender:
         slow LIVE peer (with callers awaiting its ACKs) ever delays
         anyone."""
         handler: CancelHandler = asyncio.get_running_loop().create_future()
+        # Faultline link filter: a dropped reliable message models the
+        # network eating the frame before any replay machinery could see
+        # it — the ACK future stays pending forever, exactly what callers
+        # observe from a dead peer (they cancel after their quorum).
+        # Delays enqueue through a side task so the CALLER's latency and
+        # back-pressure stay untouched; duplicates are a best-effort-
+        # channel phenomenon and are not applied to reliable sends.
+        plane = _faultline.plane
+        if plane is not None:
+            plan = plane.filter_send(address, data)
+            if plan is not None:
+                action, delay, _copies = plan
+                if action == "drop":
+                    return handler
+                if delay > 0:
+
+                    async def enqueue_later() -> None:
+                        await asyncio.sleep(delay)
+                        if handler.cancelled():
+                            return
+                        conn = self._connection(address)
+                        await conn.queue.put((data, handler))
+                        BUDGET.touch(conn)
+
+                    task = asyncio.create_task(enqueue_later())
+                    self._delayed.add(task)
+                    task.add_done_callback(self._delayed.discard)
+                    return handler
         conn = self._connection(address)
         await conn.queue.put((data, handler))
         BUDGET.touch(conn)
@@ -252,3 +282,6 @@ class ReliableSender:
             conn.task.cancel()
             conn.pump_task.cancel()
         self._connections.clear()
+        for task in self._delayed:
+            task.cancel()
+        self._delayed.clear()

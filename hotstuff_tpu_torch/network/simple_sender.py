@@ -2,7 +2,10 @@
 
 Port copy of ``hotstuff_tpu/network/simple_sender.py`` with its telemetry
 counters (``net.frames_out``, ``net.bytes_out``, ``net.writes``,
-``net.send_drops``), less the faultline link filter.
+``net.send_drops``) and the faultline link filter (drop, delay and
+duplicate). Unlike the reference, ``shutdown`` also cancels the frames
+that the filter holds back, so a crashed engine sends nothing after its
+crash (ROADMAP §3).
 
 One connection task per peer holding a bounded queue; no retry — on socket
 error the connection task dies and queued messages are dropped; the next
@@ -21,6 +24,7 @@ import random
 import struct
 
 from hotstuff_tpu_torch import telemetry
+from hotstuff_tpu_torch.faultline import hooks as _faultline
 
 from .budget import BUDGET
 from .receiver import read_frame
@@ -127,8 +131,33 @@ class SimpleSender:
     def __init__(self) -> None:
         self._connections: dict[tuple[str, int], _Connection] = {}
         self._rng = random.Random()
+        self._delayed: set[asyncio.TimerHandle] = set()
 
     def _send_framed(self, address: tuple[str, int], framed: bytes) -> None:
+        # Faultline link filter (one module-global load when disabled):
+        # the active FaultPlane may drop this frame, delay it, or fan it
+        # out as duplicates — per-link, seeded, and counted.
+        plane = _faultline.plane
+        if plane is not None:
+            plan = plane.filter_send(address, framed, payload_off=4)
+            if plan is not None:
+                action, delay, copies = plan
+                if action == "drop":
+                    return
+                for _ in range(copies):
+                    self._deliver_later(delay, address, framed)
+                return
+        self._deliver_framed(address, framed)
+
+    def _deliver_later(self, delay: float, address: tuple[str, int], framed: bytes) -> None:
+        def deliver() -> None:
+            self._delayed.discard(handle)
+            self._deliver_framed(address, framed)
+
+        handle = asyncio.get_running_loop().call_later(delay, deliver)
+        self._delayed.add(handle)
+
+    def _deliver_framed(self, address: tuple[str, int], framed: bytes) -> None:
         conn = self._connections.get(address)
         if conn is None or not conn.try_send(framed):
             conn = _Connection(address)
@@ -160,3 +189,6 @@ class SimpleSender:
         for conn in self._connections.values():
             conn.task.cancel()
         self._connections.clear()
+        for handle in self._delayed:
+            handle.cancel()
+        self._delayed.clear()

@@ -13,9 +13,15 @@ certificate path's device is the crypto backend's
 (``HOTSTUFF_CRYPTO_BACKEND``). With telemetry on, ``new`` installs the
 resource collector, starts the sampling profiler under ``HOTSTUFF_PYPROF``
 and streams snapshots to ``HOTSTUFF_TELEMETRY[_DIR]`` with the shutdown
-flush armed, as the reference does (``:151-192``). Left out: the faultline
-scenario hook (reference ``:37-64``), and the faultline counters and
-flight record of ``crash``/``restart`` (``:245-256``, ``:306``).
+flush armed, as the reference does (``:151-192``).
+``HOTSTUFF_FAULTLINE=<scenario.json>`` arms faultline before any actor
+spawns (reference ``:28-69``, ``:99-102``), and ``crash``/``restart``
+count ``faultline.injected.crashes``/``restarts`` and dump the
+``node_crash`` flight record (``:245-256``, ``:306``). One departure: in a
+process that boots several nodes from the same scenario (each in a task
+of its own, so that each keeps its own ``faultline.hooks.NODE``), the
+nodes share the one plane the first of them armed, where the reference
+arms one plane per process and so one per node.
 """
 
 from __future__ import annotations
@@ -36,6 +42,64 @@ from .config import Committee, Parameters, Secret
 log = logging.getLogger("node")
 
 CHANNEL_CAPACITY = 1_000
+
+#: (scenario path, plane) armed by ``_install_faultline_from_env`` in this
+#: process: later nodes booted from the same scenario share that plane.
+_armed: tuple | None = None
+
+
+def _committee_node_names(committee: Committee) -> dict:
+    """Deterministic scenario names for a committee's members: sort by
+    consensus address and name positionally (``n000``...). Every process
+    reading the same committee file derives the same mapping, so one
+    scenario file coordinates a whole LocalBench/netns deployment."""
+    ordered = sorted(
+        committee.consensus.authorities.items(),
+        key=lambda kv: kv[1].address,
+    )
+    return {pk: f"n{i:03d}" for i, (pk, _) in enumerate(ordered)}
+
+
+def _install_faultline_from_env(committee: Committee, name) -> None:
+    """``HOTSTUFF_FAULTLINE=<scenario.json>`` arms this process's fault
+    plane: the scenario compiles against the committee-derived node names
+    and the plane starts at process boot (virtual t=0 ≈ node boot; the
+    few hundred ms of boot skew between processes is noise at scenario
+    timescales). The node's own identity comes from its key, set in the
+    caller's context; a node booted later in the same process from the
+    same scenario takes the plane already armed."""
+    global _armed
+    scenario_path = os.environ.get("HOTSTUFF_FAULTLINE")
+    if not scenario_path:
+        return
+    from hotstuff_tpu_torch.faultline import FaultPlane, Scenario, hooks, install
+
+    names = _committee_node_names(committee)
+    if _armed is not None and _armed[0] == scenario_path and hooks.plane is _armed[1]:
+        hooks.NODE.set(names[name])
+        log.info("faultline armed from %s as %s (shared plane)", scenario_path, names[name])
+        return
+    addr_to_node: dict = {}
+    consensus_addrs = set()
+    for pk, auth in committee.consensus.authorities.items():
+        addr_to_node[tuple(auth.address)] = names[pk]
+        consensus_addrs.add(tuple(auth.address))
+    for pk, auth in committee.mempool.authorities.items():
+        addr_to_node[tuple(auth.mempool_address)] = names[pk]
+        for w in auth.workers:
+            # Conveyor worker ports: partitions/link faults apply to the
+            # data plane's dissemination traffic too.
+            addr_to_node[tuple(w.worker_address)] = names[pk]
+    scenario = Scenario.load(scenario_path)
+    schedule = scenario.compile(sorted(names.values()))
+    plane = FaultPlane(schedule, addr_to_node, consensus_addrs)
+    install(plane).start()
+    _armed = (scenario_path, plane)
+    hooks.NODE.set(names[name])
+    log.info(
+        "faultline armed from %s as %s (seed %d)",
+        scenario_path, names[name], scenario.seed,
+    )
 
 
 class Node:
@@ -78,6 +142,10 @@ class Node:
         get_backend()
         self.store = Store(store_path)
         self._boot = (secret, committee, parameters, benchmark, device)
+        # Arm fault injection BEFORE any actor spawns: the faultline node
+        # identity is a contextvar, and tasks inherit the context they
+        # were created in.
+        _install_faultline_from_env(committee, secret.name)
         await self._spawn()
 
         # Resource observability (RSS, on-disk store size, optional
@@ -210,6 +278,18 @@ class Node:
             self.resolver_task.cancel()
             self.resolver, self.resolver_task = None, None
         self.crashed = True
+        telemetry.counter("faultline.injected.crashes").inc()
+        if telemetry.enabled() and self._boot is not None:
+            # Postmortem: the last ring of protocol events at the moment
+            # of the (injected) crash, plus the registry state.
+            flight_path = telemetry.env_flight_path(str(self._boot[0].name))
+            if flight_path is not None:
+                telemetry.dump_flight_record(
+                    flight_path,
+                    "node_crash",
+                    telemetry.trace_buffer(),
+                    telemetry.get_registry(),
+                )
         log.warning("Node crashed (supervised)")
 
     async def restart(self) -> "Node":
@@ -223,6 +303,7 @@ class Node:
         await self._drain_crashed()
         await self._spawn()
         self.crashed = False
+        telemetry.counter("faultline.injected.restarts").inc()
         log.info("Node restarted (supervised)")
         return self
 

@@ -31,11 +31,9 @@ commit wins) automatically.
 Port copy of ``hotstuff_tpu/telemetry/__init__.py``: the same schema
 strings, environment switches, metric names and no-op objects, so the
 reference harness's readers (``benchmark/logs.py``'s ``TelemetryParser``,
-the ``validate`` CLI of either package) read the port's streams. Left
-out: the watchtower and its re-exports (``ALERT_SCHEMA``,
-``AlertCapture``, ``Watchtower``, ``WatchtowerConfig``,
-``validate_alert_record``), which score faultline's scenarios and come
-with that slice.
+the ``validate`` CLI of either package) read the port's streams, and the
+watchtower's re-exports (``ALERT_SCHEMA``, ``AlertCapture``,
+``Watchtower``, ``WatchtowerConfig``, ``validate_alert_record``).
 """
 
 from __future__ import annotations
@@ -87,6 +85,13 @@ from .trace import (
     dump_flight_record,
     validate_trace_record,
 )
+from .watchtower import (
+    ALERT_SCHEMA,
+    AlertCapture,
+    Watchtower,
+    WatchtowerConfig,
+    validate_alert_record,
+)
 
 __all__ = [
     "COUNT_BUCKETS",
@@ -99,6 +104,11 @@ __all__ = [
     "DTRACE_SCHEMA",
     "FLIGHT_SCHEMA",
     "PROFILE_SCHEMA",
+    "ALERT_SCHEMA",
+    "AlertCapture",
+    "Watchtower",
+    "WatchtowerConfig",
+    "validate_alert_record",
     "build_meta_record",
     "validate_meta_record",
     "SamplingProfiler",

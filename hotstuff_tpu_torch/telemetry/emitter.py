@@ -23,8 +23,7 @@ last interval of every stream was lost.
 alongside its regex path; the CI smoke lane validates them with
 ``validate_snapshot``.
 
-Port copy of ``hotstuff_tpu/telemetry/emitter.py``. The watchtower is not
-ported, so ``ALERT_SCHEMA`` is a constant here rather than its import.
+Port copy of ``hotstuff_tpu/telemetry/emitter.py``.
 """
 
 from __future__ import annotations
@@ -45,10 +44,6 @@ log = logging.getLogger("telemetry")
 
 SCHEMA = "hotstuff-telemetry-v1"
 META_SCHEMA = "hotstuff-meta-v1"
-#: the watchtower's alert records (reference ``telemetry/watchtower.py``,
-#: not ported yet): named here so the meta record lists the reference's
-#: schemas byte for byte.
-ALERT_SCHEMA = "hotstuff-alert-v1"
 DEFAULT_INTERVAL_S = 5.0
 
 
@@ -68,6 +63,7 @@ def build_meta_record(
     from .dtrace import DTRACE_SCHEMA
     from .profiler import PROFILE_SCHEMA
     from .trace import TRACE_SCHEMA
+    from .watchtower import ALERT_SCHEMA
 
     return {
         "schema": META_SCHEMA,

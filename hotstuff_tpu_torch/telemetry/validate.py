@@ -17,8 +17,8 @@ each record against the schema its ``schema`` field claims, and reports:
 
 Exit code 0 when every file is clean, 1 when any problem was found.
 
-Port copy of ``hotstuff_tpu/telemetry/validate.py``. The watchtower is not
-ported, so an alert record counts as an unknown schema here.
+Port copy of ``hotstuff_tpu/telemetry/validate.py``, alert records
+included.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from .dtrace import DTRACE_SCHEMA, validate_dtrace_record
 from .emitter import META_SCHEMA, SCHEMA, validate_meta_record, validate_snapshot
 from .profiler import PROFILE_SCHEMA, validate_profile_record
 from .trace import TRACE_SCHEMA, validate_trace_record
+from .watchtower import ALERT_SCHEMA, validate_alert_record
 
 VALIDATORS = {
     SCHEMA: validate_snapshot,
@@ -38,6 +39,7 @@ VALIDATORS = {
     DTRACE_SCHEMA: validate_dtrace_record,
     PROFILE_SCHEMA: validate_profile_record,
     META_SCHEMA: validate_meta_record,
+    ALERT_SCHEMA: validate_alert_record,
 }
 
 

@@ -6,8 +6,7 @@ sharded client on the CPU.
   in both wire formats, the watermark's hysteresis, shedding at the
   ingress edge, worker batching, certification and dedup against live
   ACKing peers, commit-path resolution and the data plane's depth
-  bookkeeping. Left out: the faultline ``batch_withhold`` test (faultline
-  is not ported).
+  bookkeeping, and the faultline ``batch_withhold`` peer handler.
 - Bundle, worker-batch, ack, batch-request and v1/v2 cert frames are
   byte-identical across the packages for the same seeded inputs, and each
   package decodes the other's frames to the same values.
@@ -395,7 +394,9 @@ async def test_ingress_handler_client_visible_shedding():
 async def test_worker_dispatch_frames_offers_and_sheds():
     """Twin of ``tests/test_ingress_batching.py``'s: valid bundles land in
     the bounded queue, overflow sheds with a per-writer ``b"Shed"``,
-    non-bundle frames are ignored (the port queues no arrival stamp)."""
+    non-bundle frames are ignored, and each bundle is queued beside its
+    arrival stamp (the seal's back-dated lifeline ``ingress`` event), as in
+    the reference."""
     ingress = BoundedIngress(2)
     handler = IngressHandler(ingress)
     w_ok, w_shed, w_junk = _FakeWriter(), _FakeWriter(), _FakeWriter()
@@ -407,7 +408,8 @@ async def test_worker_dispatch_frames_offers_and_sheds():
     ])
     assert ingress.qsize() == 2 and ingress.shed == 1
     assert w_shed.sent == [b"Shed"] and w_ok.sent == [] and w_junk.sent == []
-    m1, m2 = ingress.get_nowait(), ingress.get_nowait()
+    (t1, m1), (t2, m2) = ingress.get_nowait(), ingress.get_nowait()
+    assert t1 == t2  # one clock read per wakeup
     assert dpm.decode_bundle(m1)[0] == 3 and dpm.decode_bundle(m2)[0] == 5
 
 
@@ -649,6 +651,68 @@ async def test_dataplane_depth_rises_on_seal_and_falls_on_commit():
     assert dp.watermark.depth == 1
     dp.note_committed([digests[3], digests[4]])  # unknown digest: no-op
     assert dp.watermark.depth == 0
+
+
+@async_test
+async def test_peer_handler_withholds_acks_under_faultline():
+    """batch_withhold: the marked node stores the batch but never signs
+    an ack and never serves batch requests — and heals on schedule."""
+    from hotstuff_tpu_torch import telemetry
+    from hotstuff_tpu_torch.faultline import FaultPlane, Scenario, install, uninstall
+    from hotstuff_tpu_torch.faultline import hooks as fl_hooks
+    from hotstuff_tpu_torch.mempool.dataplane.worker import PeerWorkerHandler
+
+    committee = worker_committee(BASE + 900)
+    ks = keys()
+    name = ks[1][0]
+    store = Store()
+    telemetry.reset_for_tests()
+    telemetry.enable()
+    handler = PeerWorkerHandler(
+        name, committee, store, SignatureService(ks[1][1]), asyncio.Queue()
+    )
+    batch = dpm.encode_worker_batch(0, 1, [], b"\x00\x00\x00\x01x")
+    digest = sha512_digest(batch)
+
+    scenario = Scenario(
+        name="withhold", seed=1, duration_s=10.0,
+        events=[{
+            "kind": "byzantine", "node": "n001",
+            "behavior": "batch_withhold", "at": 0.0, "until": 5.0,
+        }],
+    )
+    t = [0.0]
+    plane = FaultPlane(
+        scenario.compile(["n000", "n001", "n002", "n003"]),
+        {}, clock=lambda: t[0],
+    ).start(t0=0.0)
+    install(plane)
+    token = fl_hooks.NODE.set("n001")
+    try:
+        writer = _FakeWriter()
+        await handler.dispatch(writer, batch)
+        # Stored (the bytes are held) but NOT acked (no attestation).
+        assert await store.read(digest.data) == batch
+        assert writer.sent == []
+        # Batch requests are not served while withholding either.
+        req = dpm.encode_batch_request([digest], ks[0][0])
+        await handler.dispatch(writer, req)
+        assert writer.sent == []
+        counters = telemetry.get_registry().snapshot()["counters"]
+        assert counters["faultline.injected.acks_withheld"] == 2
+        # After the heal, the same node acks normally.
+        t[0] = 6.0
+        writer2 = _FakeWriter()
+        await handler.dispatch(writer2, batch)
+        assert len(writer2.sent) == 1
+        ack_d, signer, sig = dpm.decode_ack(writer2.sent[0])
+        assert ack_d == digest and signer == name
+        sig.verify(dpm.ack_digest(digest), name)
+    finally:
+        fl_hooks.NODE.reset(token)
+        uninstall()
+        telemetry.reset_for_tests()
+        telemetry.disable()
 
 
 # -- the client's coalescing -------------------------------------------------

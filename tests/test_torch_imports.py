@@ -2,7 +2,8 @@
 loads neither ``jax`` nor any module of the JAX package, ``chip_smoke.py``
 and ``bench_torch.py`` import neither (nor the reference's ``benchmark``
 package), and the port's entry points, called without ``device`` on a host
-without CUDA, raise instead of running on the CPU. Checked in a
+without CUDA, raise instead of running on the CPU. The network imports
+faultline's hooks on its hot path, and nothing more of faultline. Checked in a
 fresh interpreter, since this test process itself imports the JAX
 package."""
 
@@ -85,12 +86,35 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "crypto.native_ed25519", "crypto.cpu_batch", "telemetry",
                  "telemetry.registry", "telemetry.spans", "telemetry.trace",
                  "telemetry.profiler", "telemetry.emitter", "telemetry.dtrace",
-                 "telemetry.resources", "telemetry.slo", "telemetry.validate"):
+                 "telemetry.resources", "telemetry.slo", "telemetry.validate",
+                 "telemetry.watchtower", "faultline", "faultline.hooks", "faultline.policy",
+                 "faultline.runtime", "faultline.checker", "faultline.byzantine",
+                 "faultline.harness"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
         for what, message in result["raised"].items():
             assert message is not None and "CUDA" in message, what
+
+
+LIGHT_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import hotstuff_tpu_torch.network
+print(json.dumps(sorted(m for m in sys.modules if ".faultline" in m or "consensus" in m)))
+"""
+
+
+def test_network_loads_faultline_hooks_and_not_its_harness():
+    out = subprocess.run(
+        [sys.executable, "-c", LIGHT_PROBE, str(REPO)],
+        capture_output=True, text=True, timeout=120, cwd=REPO, check=True,
+    )
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "hotstuff_tpu_torch.faultline.hooks" in loaded
+    for lazy in ("harness", "byzantine", "checker"):
+        assert f"hotstuff_tpu_torch.faultline.{lazy}" not in loaded
+    assert not any(m.startswith("hotstuff_tpu_torch.consensus") for m in loaded)
 
 
 def imported_by(script: str) -> set[str]:

@@ -22,6 +22,11 @@ same values of ``HOTSTUFF_TELEMETRY``, ``HOTSTUFF_TELEMETRY_DIR``,
 ``HOTSTUFF_TRACEMALLOC`` both packages enable the same planes and name the
 same paths, periods and capacities. ``HOTSTUFF_PYPROF`` (read by the node)
 is held in ``tests/test_torch_telemetry.py``.
+
+And faultline's: ``HOTSTUFF_FAULTLINE_NODE`` gives both packages'
+``faultline.hooks.NODE`` the same default (read at import, so in a fresh
+interpreter), and ``HOTSTUFF_FAULTLINE`` arms both nodes' planes alike
+(unset: no plane; a scenario path: the same schedule and address map).
 """
 
 import pytest
@@ -207,3 +212,71 @@ def test_tracemalloc_switch_in_both_packages(telemetry_env, value, tracing):
         tracemalloc.stop()
     assert gauges[0] == gauges[1]
     assert bool(gauges[0]) is tracing
+
+
+FAULTLINE_NODE_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from hotstuff_tpu.faultline import hooks as j_hooks
+from hotstuff_tpu_torch.faultline import hooks as t_hooks
+print(json.dumps([t_hooks.NODE.get(), j_hooks.NODE.get()]))
+"""
+
+
+@pytest.mark.parametrize("value", ["n002", None], ids=["n002", "unset"])
+def test_faultline_node_switch_means_the_same_in_both_packages(value):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k != "HOTSTUFF_FAULTLINE_NODE"}
+    if value is not None:
+        env["HOTSTUFF_FAULTLINE_NODE"] = value
+    out = subprocess.run([sys.executable, "-c", FAULTLINE_NODE_PROBE, str(repo)], env=env,
+                         capture_output=True, text=True, timeout=60, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [value, value]
+
+
+@pytest.mark.parametrize("armed", [True, False], ids=["scenario", "unset"])
+def test_faultline_switch_arms_both_packages_nodes_alike(tmp_path, monkeypatch, armed):
+    import contextvars
+
+    import hotstuff_tpu.faultline as j_faultline
+    import hotstuff_tpu.node.node as j_node
+    import hotstuff_tpu_torch.faultline as t_faultline
+    import hotstuff_tpu_torch.node.node as t_node
+
+    from .test_torch_dataplane_e2e import write_worker_testbed
+
+    committee_file, _, key_files = write_worker_testbed(tmp_path, 23590, workers=1)
+    monkeypatch.delenv("HOTSTUFF_FAULTLINE", raising=False)
+    if armed:
+        path = str(tmp_path / "scenario.json")
+        t_faultline.Scenario.load("benchmark/scenarios/partition.json").save(path)
+        monkeypatch.setenv("HOTSTUFF_FAULTLINE", path)
+    monkeypatch.setattr(t_node, "_armed", None)
+    seen = []
+    try:
+        for node_mod, faultline in ((t_node, t_faultline), (j_node, j_faultline)):
+            committee = node_mod.Committee.read(committee_file)
+            name = node_mod.Secret.read(key_files[3]).name
+
+            def arm():
+                node_mod._install_faultline_from_env(committee, name)
+                return faultline.hooks.NODE.get()
+
+            identity = contextvars.copy_context().run(arm)
+            plane = faultline.hooks.plane
+            seen.append(None if plane is None else (
+                identity, plane.schedule.trace(), sorted(plane.addr_to_node.items()),
+                sorted(plane.consensus_addrs)))
+    finally:
+        t_faultline.uninstall()
+        j_faultline.uninstall()
+    assert seen[0] == seen[1]
+    assert (seen[0] is not None) is armed
+    if armed:
+        assert seen[0][0] == "n003"

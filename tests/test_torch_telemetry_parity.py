@@ -49,8 +49,9 @@ PKG = {
     "port": (t_tm, t_arena, t_prof, t_validate),
     "reference": (j_tm, j_arena, j_prof, j_validate),
 }
-# Metric-name prefixes whose call sites wait for later slices of the port.
-DEFERRED = ("faultline.", "mempool.worker.", "mempool.resolver.", "crypto.verify_memo.")
+# Metric-name prefixes whose call sites wait for later slices of the port
+# (the sim plane's verdict memo).
+DEFERRED = ("crypto.verify_memo.",)
 
 
 @pytest.fixture(autouse=True)
