@@ -138,9 +138,8 @@ unguarded (any failure ends the run with a non-zero exit):
       object the earlier phases left alive frozen out of the garbage
       collector: a full collection stops the event loop for as long as it
       takes to traverse every tracked object, and over the earlier phases'
-      heap that came near the 1 s consensus timer), each on a
-      ``LogEngine`` store in a
-      temporary directory, keys from ``--seed``, timeout 1 s, 15 kB
+      heap that came near the 1 s consensus timer), each on a store in a
+      temporary directory (the node's default engine, ``NativeEngine``), keys from ``--seed``, timeout 1 s, 15 kB
       batches sealed at 10 ms at the latest, device digests on, the
       backend chosen by ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched`` at the
       first ``get_backend()``; four port clients (``node.client``) at 250
@@ -172,7 +171,7 @@ unguarded (any failure ends the run with a non-zero exit):
    reference sweep's defaults (``README.md:107``,
    ``benchmark/dataplane_sweep.py:150-160``), four port ``Node``s with two
    workers each in this process (after the same collection and freeze as
-   10c), ``LogEngine`` stores, keys from ``--seed``, timeout 2 s, 512 B
+   10c), stores on disk (``NativeEngine``), keys from ``--seed``, timeout 2 s, 512 B
    transactions, 250,000 B batches sealed at 50 ms at the latest,
    ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched``; four sharded port clients
    (``node.client.run_sharded_client``) at 5,000 tx/s each, 20,000 offered,
@@ -314,7 +313,39 @@ unguarded (any failure ends the run with a non-zero exit):
       keeps its own identity, under the one plane the first armed (the
       reference arms one plane per process, one node each). Every sample
       must commit, ``faultline.injected.acks_withheld`` must rise, and the
-      cached path's kernels launch (K4 never).
+      cached path's kernels launch (K4 never);
+16. the native plane (``network/native/``, the C++ epoll transport with its
+   vote pre-stage, and ``store/native/``), in a child process that this one
+   starts with ``HOTSTUFF_NET=native`` and ``HOTSTUFF_CRYPTO_WORKERS=32`` (both
+   read at import) and the cert arena on; it prints its lines, and this
+   process fails unless it exits 0 within 480 s having printed every part's
+   line and its result line (each part's launches). Nothing falls back to
+   asyncio: the child fails unless the network package's three classes are
+   the native ones.
+   a. phase 9's committee (N = 100, quorum 67, ``cuda-batched``, 10 timed
+      rounds, ports 11200-11299) with telemetry on: ms per committed round
+      beside phase 9's asyncio figure of this call, the C++ pre-stage's
+      ``votes_batched``, ``votes_dropped`` and ``votes_dropped_dup`` over the
+      timed rounds, ``crypto.dispatch.cuda`` (it must equal the verdict's
+      launches), and the launches a round; every inner call decompress 1
+      (more: keys entering the card's cache), K2 2, K3 2, verdict 1, K4 never;
+   b. BASELINE config 4 in protocol mode, as the reference's
+      ``HOTSTUFF_NET=native committee_scale.py --mode protocol --nodes 1000``:
+      N = 1000 engines (f = 333, quorum 667, keys from ``--seed``) on ports
+      12000-12999, ``cuda-batched``, cert and decode arenas on, wire v2,
+      batched vote verification, timeout 30 s. After the first commit on
+      every engine, 5 timed rounds (the reference's default is 20; the one
+      cut, to keep the whole run under 15 minutes): every engine commits the same
+      digest each round and no timeout fires; each inner call launches as in
+      a. It prints ms per committed round, the open fds at the window's end,
+      and per round the inner verify calls, signatures and launches;
+   c. phase 10c's config 1 (four nodes, 1000 tx/s of 512 B, 10 s) on ports
+      11300-11399, each node's store on disk: committed tx/s, e2e p50 and
+      p95, and each store's engine, which must be ``NativeEngine``;
+   d. ``benchmark/scenarios/partition.json`` at N = 4 as phase 15a runs it,
+      on ports 11400-11499, consensus receivers and vote broadcasts on the
+      C++ engine: safe, recovered, its trace the compiled schedule's; its
+      injection counts and recovery seconds after the heal.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -334,7 +365,8 @@ row's times at 8 shards with both MSMs' results, and its
 ``launches_bench_cached`` and ``launches_bench_uncached`` from phase 14's two
 runs, and its ``bench_*`` keys at the bench's widths, the decompression's
 ``bench_uncached_*`` at every uncached lane; ``launches_faultline`` from all
-of phase 15's runs together)
+of phase 15's runs together; ``launches_native_n100``, ``_n1000``, ``_config1``
+and ``_faultline`` from phase 16's parts a-d)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -384,7 +416,7 @@ FD_LIMITS = raise_fd_limit()
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import bench_torch  # noqa: E402
-from hotstuff_tpu_torch import crypto, faultline, telemetry  # noqa: E402
+from hotstuff_tpu_torch import crypto, faultline, network, telemetry  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
@@ -399,6 +431,7 @@ from hotstuff_tpu_torch.consensus.statesync import (  # noqa: E402
 )
 from hotstuff_tpu_torch.consensus.messages import (  # noqa: E402
     QC,
+    TAG_PROPOSE,
     TC,
     Block,
     CertificateCache,
@@ -419,6 +452,8 @@ from hotstuff_tpu_torch.mempool import Parameters as MempoolParameters  # noqa: 
 from hotstuff_tpu_torch.mempool import processor  # noqa: E402
 from hotstuff_tpu_torch.mempool.messages import decode as decode_batch  # noqa: E402
 from hotstuff_tpu_torch.mempool.messages import encode_batch  # noqa: E402
+from hotstuff_tpu_torch.network import native as native_net  # noqa: E402
+from hotstuff_tpu_torch.network import reliable_sender, simple_sender  # noqa: E402
 from hotstuff_tpu_torch.network.budget import BUDGET  # noqa: E402
 from hotstuff_tpu_torch.ops import curve as cv  # noqa: E402
 from hotstuff_tpu_torch.ops import field as fe  # noqa: E402
@@ -502,7 +537,6 @@ COMMITTEE_TIMEOUT_MS = 30_000
 COMMITTEE_PORTS = (10000, 10200, 10100, 10800)
 # Seconds allowed for the first commit everywhere, and for each round after.
 COMMITTEE_BOOT_S, COMMITTEE_ROUND_S = 75.0, 20.0
-PHASE9_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 # The profiler's stage tags: the core's stage seeds, the round trace's
 # marks and the crypto bridge's worker tag (reference
 # ``hotstuff_tpu/consensus/core.py:905-922``, ``telemetry/spans.py``).
@@ -615,6 +649,22 @@ QUIET_PORTS, WITHHOLD_PORTS, FAULT_TIMEOUT_MS = 11040, 11100, 1_000
 # Scenarios whose faults cut links: each must count dropped frames.
 DROPPING = ("partition.json", "delay-reorder.json", "storm-n20.json")
 FAULT_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
+# Phase 16: the native plane, in a child process started with these
+# variables (both read at import: the transport switch by the network
+# package, the bridge's worker count by the crypto bridge, as
+# benchmark/committee_scale.py:467 sets it for protocol mode). a: phase 9's
+# committee (BASELINE config 2); b: BASELINE config 4 in protocol mode,
+# N = 1000 (f = 333, quorum 667), 5 timed rounds where committee_scale's
+# default is 20 (the one cut, to keep the run under 15 minutes); c: phase 10c's
+# config 1 on native stores; d: phase 15a's partition.json. Ports
+# 11200-11499 and 12000-12999: below the H100 host's ephemeral range, clear
+# of the other phases and of the card tests.
+NATIVE_ENV = {"HOTSTUFF_NET": "native", "HOTSTUFF_CRYPTO_WORKERS": "32",
+              "HOTSTUFF_CERT_ARENA": "1"}
+NATIVE_N100_PORTS, NATIVE_NODE_PORTS, NATIVE_FAULT_PORTS = 11200, 11300, 11400
+NATIVE_N, NATIVE_PORTS, NATIVE_ROUNDS = 1000, 12000, 5
+NATIVE_TIMEOUT_S = 480
+NATIVE_RESULT = "phase 16 result: "
 
 
 class SmokeFailure(RuntimeError):
@@ -1294,6 +1344,28 @@ def node_path(keys, committee, qcs, seed: int):
 # -- phase 9: the consensus engine on the card ----------------------------------
 
 
+def native_stats() -> dict:
+    """The native transport's counters (``NativeTransport.stats``), or {}
+    where no native transport is live in this process."""
+    transport = native_net.NativeTransport.get_if_live()
+    return transport.stats() if transport is not None else {}
+
+
+def check_committee_launches(run: dict, what: str) -> None:
+    """Every inner call of a card committee's timed rounds launched a warm
+    cached QC's kernels (decompress 1, K2 2, K3 2, verdict 1; more
+    decompressions are committee keys entering the card's cache), K4 and
+    the root alone never, and ``CudaBackend`` made each call."""
+    launches, calls = run["launches"], run["inner_calls"]
+    check(calls > 0 and run["dispatches"] == calls,
+          f"{what}: {run['dispatches']} CudaBackend calls against {calls} inner calls")
+    check(launches["verdict"] == calls and launches["msm_partials_signed"] == 2 * calls
+          and launches["msm_combine"] == 2 * calls and launches["decompress"] >= calls,
+          f"{what}: {calls} inner calls launched {launches}")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"{what}: K4 or the root alone launched: {launches}")
+
+
 def gate_inner(backend: BatchingBackend) -> threading.Lock:
     """Wraps the card backend's ``verify_batch`` in a lock, so that the
     counts read at a run's edges under it are not straddled by an inner
@@ -1320,7 +1392,10 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
     counter deltas and histogram sums over the timed rounds go in
     ``out["telemetry"]``; with ``profile``, the engines count their stages
     (``consensus.stage.<kind>.{ns,calls}``) and a sampling profiler with
-    stage tags runs over the timed rounds. Tears every engine down."""
+    stage tags runs over the timed rounds. On the native transport, the C++
+    engine's counter deltas over the timed rounds go in ``out["native"]``;
+    ``out["fds"]`` is the process's open descriptors at the window's end,
+    when every connection of the run is open. Tears every engine down."""
     rng = random.Random(seed)
     keys = [crypto.generate_keypair(seed=rng.randbytes(32))[:2] for _ in range(n)]
     members = Committee({pk: Authority(1, ("127.0.0.1", base_port + i))
@@ -1390,6 +1465,7 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
         with gate:
             before = counters()
             tm_before = registry.snapshot() if registry is not None else None
+            native_before = native_stats()
             reset_launches()
         t = time.perf_counter()
         committed = [await next_round(COMMITTEE_ROUND_S, f"round {i + 1} of {rounds}")
@@ -1399,6 +1475,10 @@ async def committee(n: int, seed: int, base_port: int, rounds: int, traced: int 
             out["launches"] = launch_counts()
             tm_after = registry.snapshot() if registry is not None else None
             after = counters()
+            native_after = native_stats()
+        out["fds"] = len(os.listdir("/proc/self/fd"))
+        if native_after:
+            out["native"] = {k: v - native_before.get(k, 0) for k, v in native_after.items()}
         if sampler is not None:
             sampler.stop()
             out["stage_samples"] = sampler.stage_totals()
@@ -1463,20 +1543,8 @@ def committee_phase(seed: int, card: str, device, imad_per_s: float):
     gpu = asyncio.run(committee(COMMITTEE_N, seed, COMMITTEE_PORTS[0], COMMITTEE_ROUNDS,
                                 traced=COMMITTEE_TRACED_ROUNDS))
     gpu_s = time.perf_counter() - t
-    launches, r = gpu["launches"], COMMITTEE_ROUNDS
-    for name in PHASE9_KERNELS:
-        check(launches[name] > 0, f"kernel {name} never launched in the committee's rounds")
-    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
-          f"the committee launched K4 or the root alone: {launches}")
-    check(gpu["dispatches"] > 0 and gpu["dispatches"] == gpu["inner_calls"],
-          f"{gpu['dispatches']} CudaBackend calls against {gpu['inner_calls']} inner calls")
-    # Each inner call is one cached-path verify on the card: decompress 1
-    # (the fresh R), K2 and K3 2 each, the verdict 1. Decompressions beyond
-    # that are committee keys entering the card's cache.
-    calls = gpu["inner_calls"]
-    check(launches["verdict"] == calls and launches["msm_partials_signed"] == 2 * calls
-          and launches["msm_combine"] == 2 * calls and launches["decompress"] >= calls,
-          f"{calls} inner calls launched {launches}")
+    launches, r, calls = gpu["launches"], COMMITTEE_ROUNDS, gpu["inner_calls"]
+    check_committee_launches(gpu, "the committee")
     print(f"committee on {card}: N={gpu['n']} (quorum {gpu['quorum']}) under cuda-batched, "
           f"first commit (round {gpu['first_round']}) after {gpu['boot_s']:.2f} s, then {r} rounds "
           f"{gpu['rounds'][0]}-{gpu['rounds'][-1]}, every engine committing the same digest, no "
@@ -1525,7 +1593,7 @@ def committee_phase(seed: int, card: str, device, imad_per_s: float):
           f"{len(qc.votes)} signatures, mf={shapes[0]} mc={shapes[1]}:")
     for line in notes:
         print("  " + line)
-    return launches, rows, profiled
+    return launches, rows, profiled, gpu["ms_per_round"]
 
 
 def profiled_committee(seed: int, card: str, gpu: dict, batched: BatchingBackend) -> dict:
@@ -2052,9 +2120,10 @@ def freeze_heap() -> str:
             f"out of the collector and a full collection took {frozen_collect_ms:.1f} ms")
 
 
-async def config1(seed: int, device) -> dict:
+async def config1(seed: int, device, base: int = NODE_PORTS) -> dict:
     """Four port nodes at BASELINE config 1 (``fab local``) in this process,
-    four port clients at 250 tx/s each; see phase 10c in the docstring."""
+    four port clients at 250 tx/s each; see phase 10c in the docstring.
+    ``out["engines"]`` names the engine each node's store opened."""
     from hotstuff_tpu_torch.node import Committee as NodeCommittee
     from hotstuff_tpu_torch.node import Parameters as NodeParameters
     from hotstuff_tpu_torch.node import Secret
@@ -2062,7 +2131,6 @@ async def config1(seed: int, device) -> dict:
 
     rng = random.Random(seed * 7919 + 11)
     secrets = [Secret(*crypto.generate_keypair(seed=rng.randbytes(32))) for _ in range(NODE_N)]
-    base = NODE_PORTS
     consensus = Committee({s.name: Authority(1, ("127.0.0.1", base + i))
                            for i, s in enumerate(secrets)})
     mempool = MempoolCommittee({s.name: MempoolAuthority(
@@ -2100,6 +2168,7 @@ async def config1(seed: int, device) -> dict:
     try:
         out["boot_s"] = await run.boot(secrets, device)
         nodes = run.nodes
+        out["engines"] = [type(n.store._engine).__name__ for n in nodes]
         backend = crypto.get_backend()
         check(isinstance(backend, BatchingBackend) and isinstance(backend.inner, CudaBackend),
               f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched installed {backend!r}")
@@ -2224,7 +2293,8 @@ def node_phase(seed: int, card: str, device, imad_per_s: float):
     check(run["timeouts"] == 0, f"{run['timeouts']} timeouts fired in the measured window (the "
           f"garbage collector ran {run['gc_pauses']} times, {run['gc_full']} full, the longest "
           f"{run['gc_longest_ms']:.1f} ms)")
-    print(f"config 1 on {card}: {NODE_N} port nodes (LogEngine stores, keys from --seed), "
+    print(f"config 1 on {card}: {NODE_N} port nodes ({'/'.join(sorted(set(run['engines'])))} "
+          f"stores, keys from --seed), "
           f"HOTSTUFF_CRYPTO_BACKEND=cuda-batched, timeout {NODE_TIMEOUT_MS} ms, batch "
           f"{NODE_BATCH_BYTES} B, max batch delay {NODE_BATCH_DELAY_MS} ms, device digests on; "
           f"{NODE_N} clients at {NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B; booted in "
@@ -2464,7 +2534,7 @@ def conveyor_phase(seed: int, card: str, device, imad_per_s: float):
     run = asyncio.run(conveyor(seed, device))
     phase_s = time.perf_counter() - t
     launches, c = run["launches"], run["counts"]
-    print(f"conveyor on {card}: {CONVEYOR_N} port nodes x {CONVEYOR_WORKERS} workers (LogEngine "
+    print(f"conveyor on {card}: {CONVEYOR_N} port nodes x {CONVEYOR_WORKERS} workers (NativeEngine "
           f"stores, keys from --seed), HOTSTUFF_CRYPTO_BACKEND=cuda-batched, timeout "
           f"{CONVEYOR_TIMEOUT_MS} ms, batch {CONVEYOR_BATCH_BYTES} B, max batch delay "
           f"{CONVEYOR_BATCH_DELAY_MS} ms; {CONVEYOR_N} sharded clients at "
@@ -3056,7 +3126,7 @@ def rejoin_phase(seed: int, card: str, device, imad_per_s: float, keys, committe
     frozen = freeze_heap()
     t = time.perf_counter()
     b = asyncio.run(warm_restart(seed, device))
-    print(f"warm restart on {card}: config 1 ({NODE_N} port nodes, LogEngine stores, device "
+    print(f"warm restart on {card}: config 1 ({NODE_N} port nodes, NativeEngine stores, device "
           f"digests, {NODE_N} clients at {NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B) at "
           f"retention {REJOIN_RETENTION}: node {WARM_VICTIM} crashed at round {b['victim_round']}, "
           f"down {b['down_s']:.2f} s while the others reached {b['heads']} ({b['rounds_lost']} "
@@ -3397,17 +3467,48 @@ def fault_run(name: str, scenario, n: int, base: int, retention: int, gate, stre
     passes where retention is on), the trace is the compiled schedule's,
     every transition was applied, the faults fired, the cached path's
     kernels launched and K4 and the root alone did not, and the counter
-    moved by exactly the verdict's launches."""
+    moved by exactly the verdict's launches. Under a silent leader, the
+    plane must have suppressed exactly the proposal frames that node handed
+    to its (asyncio) senders for a consensus address while silent, counted
+    at the senders (``silent_offered``): whether it has any to send in its
+    window (its own round's proposal, or a block in reply to a sync
+    request) depends on how fast the rounds ran before the window."""
     names = [f"n{i:03d}" for i in range(n)]
     schedule = scenario.compile(names)
     transitions = sum(1 + (e.until is not None) for e in schedule.events)
     cert_arena.reset()
     registry = telemetry.get_registry()
+    silent_offered = 0
+    send_framed = simple_sender.SimpleSender._send_framed
+    reliable_send = reliable_sender.ReliableSender.send
+
+    def note(address, frame: bytes, off: int) -> None:
+        nonlocal silent_offered
+        plane, node = faultline.hooks.plane, faultline.hooks.current_node()
+        if (plane is not None and node is not None and address in plane.consensus_addrs
+                and len(frame) > off and frame[off] == TAG_PROPOSE
+                and plane.behavior_active(node, "silent_leader")):
+            silent_offered += 1
+
+    def counted_send_framed(self, address, framed):
+        note(address, framed, 4)
+        return send_framed(self, address, framed)
+
+    async def counted_reliable_send(self, address, data):
+        note(address, data, 0)
+        return await reliable_send(self, address, data)
+
     with gate:
         reset_launches()
         before = registry.snapshot()["counters"]
     t = time.perf_counter()
-    result = asyncio.run(scenario_run(scenario, n, base, retention, stream))
+    simple_sender.SimpleSender._send_framed = counted_send_framed
+    reliable_sender.ReliableSender.send = counted_reliable_send
+    try:
+        result = asyncio.run(scenario_run(scenario, n, base, retention, stream))
+    finally:
+        simple_sender.SimpleSender._send_framed = send_framed
+        reliable_sender.ReliableSender.send = reliable_send
     wall_s = time.perf_counter() - t
     with gate:
         launches = launch_counts()
@@ -3431,7 +3532,9 @@ def fault_run(name: str, scenario, n: int, base: int, retention: int, gate, stre
             check(counters.get(f"faultline.injected.{counter}", 0) > 0, f"{name}: no {kind} counted")
     behaviors = {e.params["behavior"] for e in schedule.events if e.kind == "byzantine"}
     if "silent_leader" in behaviors:
-        check(counts["proposals_suppressed"] > 0, f"{name}: the silent leader proposed: {counts}")
+        check(counts["proposals_suppressed"] == silent_offered,
+              f"{name}: the silent leader handed its senders {silent_offered} proposal frames in "
+              f"its window and {counts['proposals_suppressed']} were suppressed: {counts}")
     if behaviors - {"silent_leader", "batch_withhold"}:
         check(counters.get("faultline.injected.byzantine_actors", 0) > 0,
               f"{name}: no byzantine actor spawned")
@@ -3443,7 +3546,8 @@ def fault_run(name: str, scenario, n: int, base: int, retention: int, gate, stre
           f"{name}: crypto.dispatch.cuda moved by {dispatched}, the verdict launched "
           f"{launches['verdict']} times")
     return {"verdict": verdict, "launches": launches, "dispatched": dispatched, "wall_s": wall_s,
-            "commits": verdict["commits"], "recovery_s": verdict["liveness"]["recovery_s"]}
+            "commits": verdict["commits"], "recovery_s": verdict["liveness"]["recovery_s"],
+            "silent_offered": silent_offered}
 
 
 def watch_stream(path: str) -> Watchtower:
@@ -3503,6 +3607,8 @@ def faultline_phase(seed: int, card: str, device) -> dict:
                   f"{max(v['liveness']['post_heal_commits'].values())}; injections {counts}"
                   + (f"; frontier audit ok, {audit['checked']} blocks, floors "
                      f"{sorted(set(audit['floors'].values()))}" if audit else "")
+                  + (f"; proposal frames the silent leader sent in its window {run['silent_offered']}"
+                     if any(e.get("behavior") == "silent_leader" for e in scenario.events) else "")
                   + f"; launches " + ", ".join(f"{k} {c}" for k, c in sorted(run["launches"].items()))
                   + f"; crypto.dispatch.cuda +{run['dispatched']} = verdict launches; "
                   f"run {run['wall_s']:.1f} s")
@@ -3574,9 +3680,180 @@ def faultline_phase(seed: int, card: str, device) -> dict:
     return total
 
 
+# -- phase 16: the native plane on the card ----------------------------------------
+
+
+def per_round(run: dict) -> str:
+    r = len(run["rounds"])
+    launches = run["launches"]
+    return (f"per round {run['inner_calls'] / r:.2f} inner verify calls, {run['sigs'] / r:.1f} "
+            f"signatures; launches per round decompress {launches['decompress'] / r:.2f}, K2 "
+            f"{launches['msm_partials_signed'] / r:.2f}, K3 {launches['msm_combine'] / r:.2f}, "
+            f"verdict {launches['verdict'] / r:.2f}, K4 {launches['msm_partials'] / r:.2f}")
+
+
+def native_child(seed: int, card: str, device, phase9_ms: float) -> dict:
+    """Phase 16 in the child that ``native_phase`` starts: parts a-d on the
+    native transport (and 16c on native stores). Returns each part's
+    launches."""
+    t_phase = time.perf_counter()
+    check(network.Receiver is native_net.NativeReceiver
+          and network.SimpleSender is native_net.NativeSimpleSender
+          and network.ReliableSender is native_net.NativeReliableSender,
+          f"HOTSTUFF_NET=native left the transport at {network.Receiver!r}")
+    kernel_build.load_all()
+    out = {}
+
+    # a. phase 9's committee, with telemetry on for crypto.dispatch.cuda.
+    telemetry.reset_for_tests()
+    telemetry.enable()  # before the backend is made: its counters record
+    crypto.set_backend("cuda-batched")
+    batched = crypto.get_backend()
+    check(isinstance(batched, BatchingBackend) and isinstance(batched.inner, CudaBackend),
+          f"cuda-batched installed {batched!r}")
+    cert_arena.reset()
+    t = time.perf_counter()
+    try:
+        run = asyncio.run(committee(COMMITTEE_N, seed, NATIVE_N100_PORTS, COMMITTEE_ROUNDS))
+    finally:
+        telemetry.reset_for_tests()
+        telemetry.disable()
+    phase_s = time.perf_counter() - t
+    check_committee_launches(run, "16a")
+    dispatched = run["telemetry"]["counters"].get("crypto.dispatch.cuda", 0)
+    check(dispatched == run["launches"]["verdict"],
+          f"16a: crypto.dispatch.cuda moved by {dispatched}, the verdict launched "
+          f"{run['launches']['verdict']} times")
+    nat = run["native"]
+    check(nat["votes_batched"] > 0, f"16a: the C++ pre-stage batched no vote: {nat}")
+    print(f"native 16a on {card}: N={run['n']} (quorum {run['quorum']}) on the native transport "
+          f"under cuda-batched (telemetry on), first commit after {run['boot_s']:.2f} s, "
+          f"{COMMITTEE_ROUNDS} rounds {run['rounds'][0]}-{run['rounds'][-1]}, every engine committing "
+          f"the same digest, no timeout: {run['ms_per_round']:.2f} ms per committed round against "
+          f"{phase9_ms:.2f} ms on asyncio in phase 9 of this call; phase {phase_s:.1f} s")
+    print(f"native 16a on {card}: C++ pre-stage votes_batched {nat['votes_batched']}, votes_dropped "
+          f"{nat['votes_dropped']}, votes_dropped_dup {nat['votes_dropped_dup']}; "
+          f"crypto.dispatch.cuda +{dispatched} = verdict launches; {per_round(run)}")
+    out["n100"] = run["launches"]
+
+    # b. BASELINE config 4 in protocol mode: N = 1000.
+    crypto.set_backend(BatchingBackend(batched.inner, max_sigs=batched.max_sigs))
+    cert_arena.reset()
+    t = time.perf_counter()
+    run = asyncio.run(committee(NATIVE_N, seed, NATIVE_PORTS, NATIVE_ROUNDS))
+    phase_s = time.perf_counter() - t
+    check_committee_launches(run, "16b")
+    nat = run["native"]
+    print(f"native 16b on {card}: BASELINE config 4 in protocol mode, N={run['n']} (f="
+          f"{(run['n'] - 1) // 3}, quorum {run['quorum']}) on the native transport under "
+          f"cuda-batched, cert and decode arenas on, wire v2, batched vote verification, timeout "
+          f"{COMMITTEE_TIMEOUT_MS} ms; RLIMIT_NOFILE soft {FD_LIMITS[1]} (hard {FD_LIMITS[2]}), "
+          f"{run['fds']} fds open at the peak; first commit on every engine after "
+          f"{run['boot_s']:.2f} s (round {run['first_round']}), then {NATIVE_ROUNDS} timed rounds "
+          f"{run['rounds'][0]}-{run['rounds'][-1]} (committee_scale's default is 20; cut to "
+          f"{NATIVE_ROUNDS} to keep the run under 15 minutes), every engine committing the same "
+          f"digest, no timeout: {run['ms_per_round']:.2f} ms per committed round, "
+          f"{1e3 / run['ms_per_round']:.3f} rounds/s; phase {phase_s:.1f} s")
+    print(f"native 16b on {card}: {per_round(run)}; C++ pre-stage votes_batched "
+          f"{nat['votes_batched']}, votes_dropped {nat['votes_dropped']}, votes_dropped_dup "
+          f"{nat['votes_dropped_dup']}; out_conns {nat['out_conns']:+d}, frames_rx "
+          f"{nat['frames_rx']}, frames_tx {nat['frames_tx']}")
+    out["n1000"] = run["launches"]
+
+    # c. BASELINE config 1 on the native transport and native stores.
+    frozen = freeze_heap()
+    t = time.perf_counter()
+    run = asyncio.run(config1(seed, device, NATIVE_NODE_PORTS))
+    phase_s = time.perf_counter() - t
+    launches = run["launches"]
+    check(run["engines"] == ["NativeEngine"] * NODE_N, f"16c: the stores opened {run['engines']}")
+    check(run["timeouts"] == 0, f"16c: {run['timeouts']} timeouts fired in the measured window")
+    for name in FAULT_KERNELS:
+        check(launches[name] > 0, f"16c: kernel {name} never launched")
+    check(launches["msm_partials"] == 0 and launches["sqrt_pow"] == 0,
+          f"16c: K4 or the root alone launched: {launches}")
+    print(f"native 16c on {card}: config 1 ({NODE_N} port nodes, stores {run['engines']}, native "
+          f"transport, HOTSTUFF_CRYPTO_BACKEND=cuda-batched, device digests on, {NODE_N} clients at "
+          f"{NODE_RATE // NODE_N} tx/s of {NODE_TX_BYTES} B): over {run['window_s']:.2f} s "
+          f"{run['tx_per_s']:.1f} committed tx/s, e2e p50 {run['p50_ms']:.1f} ms, p95 "
+          f"{run['p95_ms']:.1f} ms ({run['samples']} samples), {run['rounds_per_s']:.2f} rounds/s; "
+          f"every node committed the same {run['payload_blocks']} payload blocks, every sample "
+          f"committed, no timeout; launches " + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()))
+          + f"; phase {phase_s:.1f} s; before it {frozen}")
+    out["config1"] = launches
+
+    # d. faultline's partition.json at N = 4 on the native plane.
+    telemetry.reset_for_tests()
+    telemetry.enable()
+    crypto.set_backend("cuda-batched")
+    batched = crypto.get_backend()
+    gate = gate_inner(batched)
+    scenario = faultline.Scenario.load(os.path.join(SCENARIO_DIR, "partition.json"))
+    try:
+        run = fault_run("partition.json", scenario, 4, NATIVE_FAULT_PORTS, 0, gate)
+    finally:
+        del batched.inner.verify_batch  # the class's method again
+        telemetry.reset_for_tests()
+        telemetry.disable()
+        cert_arena.reset()
+    v = run["verdict"]
+    counts = {k: c for k, c in v["injections"]["counts"].items() if c}
+    print(f"native 16d on {card}: partition.json at N=4 (seed {scenario.seed}, consensus receivers "
+          f"and vote broadcasts on the C++ engine): safe, recovered {run['recovery_s']} s after the "
+          f"last heal at {v['liveness']['heal_t']:g} s, trace = the compiled schedule; injections "
+          f"{counts}; launches " + ", ".join(f"{k} {c}" for k, c in sorted(run["launches"].items()))
+          + f"; crypto.dispatch.cuda +{run['dispatched']} = verdict launches; run "
+          f"{run['wall_s']:.1f} s")
+    out["faultline"] = run["launches"]
+    print(f"native: phase 16 (child) in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def native_phase(seed: int, phase9_ms: float) -> dict:
+    """Phase 16: runs ``native_child`` in a child process with
+    ``NATIVE_ENV`` set, prints its lines, and fails unless it exits 0 within
+    ``NATIVE_TIMEOUT_S`` with every part's line and its result line.
+    Returns the child's launches by part."""
+    t = time.perf_counter()
+    env = {**os.environ, **NATIVE_ENV}
+    env.pop("HOTSTUFF_CRYPTO_BACKEND", None)
+    cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+           "--native-child", repr(phase9_ms)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env)
+    lines = []
+    timer = threading.Timer(NATIVE_TIMEOUT_S, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            lines.append(line)
+            if not line.startswith(NATIVE_RESULT):
+                print(line, flush=True)
+        code = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(code == 0, f"phase 16's child exited {code} (killed after {NATIVE_TIMEOUT_S} s: "
+          f"{time.perf_counter() - t >= NATIVE_TIMEOUT_S})")
+    for part in ("16a", "16b", "16c", "16d"):
+        check(any(line.startswith(f"native {part} ") for line in lines),
+              f"phase 16's child printed no line of {part}")
+    results = [line for line in lines if line.startswith(NATIVE_RESULT)]
+    check(len(results) == 1, "phase 16's child printed no result line")
+    out = json.loads(results[0][len(NATIVE_RESULT):])
+    print(f"native: phase 16 in {time.perf_counter() - t:.1f} s (HOTSTUFF_NET=native, "
+          f"HOTSTUFF_CRYPTO_WORKERS=32, the child's start and kernel load included)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--native-child", type=float, default=None, metavar="PHASE9_MS",
+                    help="run phase 16's parts here (set by the phase itself, with "
+                         "HOTSTUFF_NET=native), given phase 9's ms per round")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3586,6 +3863,10 @@ def main() -> int:
 
     # 1. toolchain
     card = nvidia_smi("name,power.limit")
+    if args.native_child is not None:
+        out = native_child(args.seed, card, device, args.native_child)
+        print(NATIVE_RESULT + json.dumps(out))
+        return 0
     print(card)
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability()
@@ -3718,7 +3999,7 @@ def main() -> int:
         print("  " + line)
 
     # 9. the consensus engine on the card
-    committee_launches, committee_rows, profiled_launches = committee_phase(
+    committee_launches, committee_rows, profiled_launches, committee_ms = committee_phase(
         args.seed, card, device, imad_per_s)
 
     # 10. the mempool and the node: the digest kernel against its plain
@@ -3754,6 +4035,11 @@ def main() -> int:
     # verify their QCs on the card, the watchtower, and batch_withhold
     faultline_launches = faultline_phase(args.seed, card, device)
 
+    # 16. the native plane: phase 9's committee, BASELINE config 4 at
+    # N = 1000, config 1 on native stores and a partition scenario, in a
+    # child process on the C++ transport
+    native = native_phase(args.seed, committee_ms)
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict", "verdict_tree"):
@@ -3775,6 +4061,7 @@ def main() -> int:
             "launches_bench_cached": bench_cached[name],
             "launches_bench_uncached": bench_uncached[name],
             "launches_faultline": faultline_launches[name],
+            **{f"launches_native_{part}": native[part][name] for part in native},
         }
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
@@ -3807,6 +4094,7 @@ def main() -> int:
         "launches_bench_cached": bench_cached["sha512"],
         "launches_bench_uncached": bench_uncached["sha512"],
         "launches_faultline": faultline_launches["sha512"],
+        **{f"launches_native_{part}": native[part]["sha512"] for part in native},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,9 +6,12 @@ Port copy of ``hotstuff_tpu/consensus/consensus.py``. Routing:
 ``Vote``/``Timeout``/``TC`` and the state-sync frames go straight to the
 Core. Every engine runs a ``StateSync``, and a ``Compactor`` when
 ``retention_rounds > 0``. The profiler's ``ingress`` tag on decode and the
-``profile`` switch (the core's per-stage counters) are the reference's.
-Left out: the native transport's vote pre-stage (``dispatch_votes`` and
-its ``fanin`` tag).
+``profile`` switch (the core's per-stage counters) are the reference's,
+and so is the native transport's vote pre-stage: ``dispatch_votes`` with
+its ``fanin`` tag, the committee table pushed down at spawn and the core's
+round advances fed to the receiver's ``set_round``. ``crash`` is
+synchronous here: it aborts each receiver (``Receiver.abort`` or
+``NativeReceiver.abort``), which closes its listener before it returns.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from .errors import MalformedMessage
 from .helper import Helper
 from .leader import make_elector
 from .mempool_driver import MempoolDriver
-from .messages import SeatTable
+from .messages import SeatTable, decode_vote_frame
 from .proposer import Proposer
 from .statesync import Compactor, StateSync
 from .synchronizer import Synchronizer
@@ -78,6 +81,22 @@ class ConsensusReceiverHandler(MessageHandler):
             await self.tx_consensus.put((kind, payload))
         else:
             await self.tx_consensus.put((kind, payload))
+
+    async def dispatch_votes(self, frames: list[bytes]) -> None:
+        """Aggregated ingress from the native vote pre-stage: one queue
+        put for the whole batch (the core re-checks round/authority and
+        performs the full signature verification — the pre-stage is a
+        filter, never a trust root)."""
+        if pyprof.TAGGING:
+            pyprof.set_thread_stage("fanin")
+        votes = []
+        for frame in frames:
+            try:
+                votes.append(decode_vote_frame(frame))
+            except (SerdeError, MalformedMessage, ValueError) as e:
+                log.warning("failed to decode pre-staged vote: %s", e)
+        if votes:
+            await self.tx_consensus.put(("votes", votes))
 
 
 class Consensus:
@@ -139,6 +158,17 @@ class Consensus:
         self.receivers.append(receiver)
         log.info("Node %s listening to consensus messages on %s", name, address)
 
+        # Native transport: push the committee table down so the vote
+        # fan-in stays in C++ (length-validate, seat-check, round-gate,
+        # dedupe, batch) and keep the engine's stale-round cutoff synced
+        # with the core's round. The asyncio receiver has neither hook —
+        # votes then flow per-frame through dispatch().
+        on_round_advance = None
+        configure_prestage = getattr(receiver, "configure_vote_prestage", None)
+        if configure_prestage is not None:
+            configure_prestage([pk.data for pk in committee.authorities])
+            on_round_advance = receiver.set_round
+
         leader_elector = make_elector(committee, parameters.leader_elector)
         self.mempool_driver = MempoolDriver(store, tx_mempool, tx_loopback)
         self.synchronizer = Synchronizer(
@@ -169,6 +199,7 @@ class Consensus:
             benchmark=benchmark,
             persist_sync=parameters.persist_sync,
             batch_vote_verification=parameters.batch_vote_verification,
+            on_round_advance=on_round_advance,
             wire_seats=wire_seats,
             statesync=statesync,
             compactor=self.compactor,
@@ -192,8 +223,10 @@ class Consensus:
 
     def crash(self) -> None:
         """Stop the engine the unclean way, as a process crash would: cancel
-        the actor tasks and abort the listeners, with no drain. The store
-        stays open, and a background log rewrite runs on to its end."""
+        the actor tasks and abort the listeners, with no drain (a native
+        listener is closed and its id released before this returns, as the
+        reference's ``await r.shutdown()`` does). The store stays open, and
+        a background log rewrite runs on to its end."""
         for t in self.tasks:
             t.cancel()
         self.synchronizer.shutdown()

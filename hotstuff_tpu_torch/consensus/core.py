@@ -26,7 +26,7 @@ The telemetry is the reference's: the ``consensus.*`` counters and
 gauges, the round tracer, ``record_commit`` and the commit dtrace event,
 the profiler's stage tags (``STAGE_SEEDS``) and, with ``profile=True``,
 the ``consensus.stage.<kind>.{ns,calls}`` counters, and so is the
-faultline audit line (``FaultlineCommit r=… d=…``). Left out: the native
+faultline audit line (``FaultlineCommit r=… d=…``), and so is the native
 vote pre-stage hook (``on_round_advance``). Beside the telemetry, the core keeps the plain
 integer counters that its callers read whether telemetry is on or not
 (``qcs_formed``, ``blocks_committed``, ``timeouts_fired``,
@@ -120,6 +120,7 @@ class Core:
         benchmark: bool = False,
         persist_sync: bool = False,
         batch_vote_verification: bool = False,
+        on_round_advance=None,
         wire_seats=None,
         network=None,
         timer=None,
@@ -169,6 +170,10 @@ class Core:
         # Rounds this node already amplified a timeout for (one own
         # timeout per future round, however many peers retransmit).
         self._amplified: set[Round] = set()
+        # Native-transport hook: pushes each round advance down to the
+        # C++ vote pre-stage so its stale-round cutoff tracks the core's.
+        # None on the asyncio transport.
+        self._on_round_advance = on_round_advance
         # Wire-format v2 seat table for outgoing timeout/TC broadcasts
         # (None = emit legacy v1). Decode-side acceptance is unconditional.
         self._wire_seats = wire_seats
@@ -724,6 +729,8 @@ class Core:
         self.leader_elector.note_round_entry(self.round, via_tc)
         self._m_rounds.inc()
         self._g_round.set(self.round)
+        if self._on_round_advance is not None:
+            self._on_round_advance(self.round)
         log.debug("Moved to round %d", self.round)
         self.aggregator.cleanup(self.round)
         self._bad_sigs = {r: s for r, s in self._bad_sigs.items() if r >= self.round}
@@ -992,6 +999,9 @@ class Core:
         stage_seeds = self.STAGE_SEEDS
         self._timer_handled = asyncio.Event()
         timer_task = asyncio.create_task(self._timer_pump(), name="consensus_timer")
+        if self._on_round_advance is not None:
+            # Seed the pre-stage cutoff with the (possibly restored) round.
+            self._on_round_advance(self.round)
         profile = self._profile
         if profile:
             import time as _time

@@ -22,11 +22,12 @@ under whatever crypto backend is installed (``cuda-batched`` verifies
 every QC on the card). Departures: ``_Engine.core()`` reads
 ``Consensus.core``, which the port's ``Consensus`` keeps, where the
 reference digs the Core out of its first task's coroutine frame; and a
-crash is ``Consensus.crash()``, the reference's asyncio teardown (tasks
-cancelled, the receivers' servers closed and their connections aborted,
-nothing shut down in order), without the native transport's branch,
-which waits for that transport's port. The port's senders close with
-their owners, so a crashed engine sends nothing until its restart. The
+crash is ``Consensus.crash()``, the reference's teardown on both planes
+(tasks cancelled, nothing shut down in order; an asyncio receiver's
+server closed and its connections aborted, a native receiver's listener
+closed and its id released before the call returns). The port's senders
+close with their owners, so a crashed engine sends nothing until its
+restart. The
 default ``base_port`` is the reference's 21000; a caller on a host whose
 ephemeral range starts lower passes a port below it.
 """
@@ -189,10 +190,11 @@ class ScenarioRun:
         """Unclean kill — cancel the actor tasks and yank the listeners,
         modeling a process crash. The store object survives (it is the
         node's disk), so a later restart exercises real state recovery.
-        ``Consensus.crash`` is the reference's asyncio teardown: every
-        task cancelled, the synchronizer and mempool driver shut, and each
-        receiver's server closed, its connection handlers cancelled and
-        its transports aborted (``Receiver.abort``)."""
+        ``Consensus.crash`` is the reference's teardown: every task
+        cancelled, the synchronizer and mempool driver shut, and each
+        receiver aborted (``Receiver.abort``: its server closed, its
+        connection handlers cancelled and its transports aborted;
+        ``NativeReceiver.abort``: its listener closed)."""
         if eng.consensus is None or eng.crashed:
             return
         eng.consensus.crash()

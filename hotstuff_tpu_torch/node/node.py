@@ -257,9 +257,13 @@ class Node:
 
     async def crash(self) -> None:
         """Kill the node the UNCLEAN way: cancel every actor task and abort
-        the listeners' transports, with no graceful drain, as a process
-        crash would, but keep the store open (it is the node's disk, and
-        ``restart`` recovers from what it persisted)."""
+        the listeners, with no graceful drain, as a process crash would,
+        but keep the store open (it is the node's disk, and ``restart``
+        recovers from what it persisted). On the native transport
+        ``Consensus.crash`` closes the consensus listener and releases its
+        id, as the reference's native branch does (``node/node.py:230-231``);
+        the mempool's receivers and the data plane shut down through
+        ``shutdown`` on both planes."""
         if self.crashed:
             return
         if self.consensus is not None:

@@ -7,9 +7,12 @@ obligation fulfilled by a later ``write`` — the "wait until data arrives"
 primitive every synchronizer builds on.
 
 The on-disk format is the reference's, byte for byte: a directory one
-package wrote opens in the other, compacted or not. Left in the
-reference: the C++ engine (``store/native/``; ``_default_engine`` here
-never loads it).
+package wrote opens in the other, compacted or not. A store with a path
+opens the C++ engine (``store/native/``, ``NativeEngine``), as the
+reference's does; ``LogEngine`` stays available through ``engine=``. One
+departure: where the reference silently takes ``LogEngine`` when the
+native engine cannot be built or opened, ``_default_engine`` here raises
+(``KernelBuildError`` when g++ is missing or refuses the source).
 
 Since the runtime is a single-threaded asyncio loop, actor serialization
 is inherent — no queue hop is needed.
@@ -323,7 +326,11 @@ class MemEngine:
 
 
 def _default_engine(path: str | None):
-    return MemEngine() if path is None else LogEngine(path)
+    if path is None:
+        return MemEngine()
+    from .native import NativeEngine
+
+    return NativeEngine(path)
 
 
 class Store:

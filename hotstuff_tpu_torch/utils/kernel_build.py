@@ -7,7 +7,8 @@ sources compile in parallel, one ``nvcc`` each. The output goes to
 flags and the card's compute capability, so a library built for other
 sources or another card is never loaded. (The JAX package's counterpart is
 its compile cache, ``hotstuff_tpu/utils/jaxcache.py``.) Host C++, the native
-Ed25519 engine, builds here too, with ``g++`` (``build_native``).
+Ed25519 engine, transport and store engine, builds here too, with ``g++``
+(``build_native``).
 """
 
 from __future__ import annotations
@@ -138,22 +139,23 @@ GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _native_lock = threading.Lock()
 
 
-def native_path(source: Path) -> Path:
+def native_path(source: Path, extra: tuple[str, ...] = ()) -> Path:
     """Where ``build_native`` puts the library of ``source``:
     ``_build/native-<key>/lib<stem>.so``."""
     h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(" ".join(GXX_FLAGS + extra).encode())
     return BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / f"lib{source.stem}.so"
 
 
-def build_native(source: Path) -> Path:
-    """Build the host C++ ``source`` with g++ unless its library is there,
-    and return the library's path (``native_path``). Processes may build at
+def build_native(source: Path, extra: tuple[str, ...] = ()) -> Path:
+    """Build the host C++ ``source`` with g++ (``GXX_FLAGS`` and ``extra``,
+    such as ``-pthread``) unless its library is there, and return the
+    library's path (``native_path``). Processes may build at
     once (tier-1 runs several workers): each compiles to a name of its own
     and renames it into place, so a reader never sees a half-written
     library. Raises ``KernelBuildError`` when g++ is missing or refuses the
     source."""
-    target = native_path(source)
+    target = native_path(source, extra)
     out_dir = target.parent
     with _native_lock:
         if target.exists():
@@ -163,7 +165,7 @@ def build_native(source: Path) -> Path:
             raise KernelBuildError("g++ not found: the native engine cannot be built")
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{source.stem}.{os.getpid()}.tmp.so"
-        proc = subprocess.run([gxx, *GXX_FLAGS, str(source), "-o", str(tmp)],
+        proc = subprocess.run([gxx, *GXX_FLAGS, *extra, str(source), "-o", str(tmp)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

@@ -78,7 +78,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "mempool.dataplane.certificate", "mempool.dataplane.worker",
                  "mempool.dataplane.dataplane",
                  "network.budget", "network.receiver", "network.reliable_sender",
-                 "network.simple_sender", "store", "utils.quorum", "utils.tasks",
+                 "network.simple_sender", "network.native", "store", "store.native",
+                 "utils.quorum", "utils.tasks", "utils.scenario_runs",
                  "utils.logging", "ops.sha512", "mempool", "mempool.messages", "mempool.config",
                  "mempool.batch_maker", "mempool.quorum_waiter", "mempool.processor",
                  "mempool.helper", "mempool.mempool", "node", "node.config", "node.node",

@@ -27,6 +27,15 @@ And faultline's: ``HOTSTUFF_FAULTLINE_NODE`` gives both packages'
 ``faultline.hooks.NODE`` the same default (read at import, so in a fresh
 interpreter), and ``HOTSTUFF_FAULTLINE`` arms both nodes' planes alike
 (unset: no plane; a scenario path: the same schedule and address map).
+
+And the transport's: ``HOTSTUFF_NET=native`` swaps both packages'
+``Receiver``, ``SimpleSender`` and ``ReliableSender`` for their native
+classes (unset or another value: asyncio), and ``HOTSTUFF_CMD_RING=0``
+turns both native transports' command ring off (unset: on); both are read
+at import or construction, so each case runs in a fresh interpreter. One
+departure is held: with ``HOTSTUFF_NET=native``, a native library that
+cannot be built or loaded makes the port's ``network`` import raise, where
+the reference logs a warning and keeps asyncio.
 """
 
 import pytest
@@ -280,3 +289,92 @@ def test_faultline_switch_arms_both_packages_nodes_alike(tmp_path, monkeypatch, 
     assert (seen[0] is not None) is armed
     if armed:
         assert seen[0][0] == "n003"
+
+
+NET_PROBE = r"""
+import asyncio, json, sys
+sys.path.insert(0, sys.argv[1])
+import hotstuff_tpu.network as j_network
+import hotstuff_tpu_torch.network as t_network
+from hotstuff_tpu.network import native as j_native
+from hotstuff_tpu_torch.network import native as t_native
+
+async def rings():
+    return [t_native.NativeTransport.get()._ring_enabled, j_native.NativeTransport.get()._ring_enabled]
+
+print(json.dumps({
+    "classes": [[m.Receiver.__name__, m.SimpleSender.__name__, m.ReliableSender.__name__]
+                for m in (t_network, j_network)],
+    "ring": asyncio.run(rings()),
+}))
+"""
+
+
+def run_probe(probe: str, env_set: dict, *args: str):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("HOTSTUFF_NET", "HOTSTUFF_CMD_RING")}
+    env.update(env_set)
+    out = subprocess.run([sys.executable, "-c", probe, str(repo), *args], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+NATIVE = ["NativeReceiver", "NativeSimpleSender", "NativeReliableSender"]
+ASYNCIO = ["Receiver", "SimpleSender", "ReliableSender"]
+
+
+@pytest.mark.parametrize("net,classes", [("native", NATIVE), ("NATIVE", NATIVE),
+                                         ("asyncio", ASYNCIO), (None, ASYNCIO)],
+                         ids=["native", "upper-case", "asyncio", "unset"])
+@pytest.mark.parametrize("ring,enabled", [("0", False), ("1", True), (None, True)],
+                         ids=["ring-0", "ring-1", "ring-unset"])
+def test_net_switches_mean_the_same_in_both_packages(net, classes, ring, enabled):
+    env = {k: v for k, v in (("HOTSTUFF_NET", net), ("HOTSTUFF_CMD_RING", ring)) if v is not None}
+    result = run_probe(NET_PROBE, env)
+    assert result["classes"] == [classes, classes]
+    assert result["ring"] == [enabled, enabled]
+
+
+BROKEN_NET_PROBE = r"""
+import ctypes, json, shutil, sys
+sys.path.insert(0, sys.argv[1])
+mode = sys.argv[2]
+from hotstuff_tpu_torch.utils import kernel_build
+if mode == "build":
+    # No g++ and no library built yet.
+    kernel_build.native_path = lambda source, extra=(): kernel_build.BUILD_ROOT / "missing" / "lib.so"
+    kernel_build.shutil = type("NoGxx", (), {"which": staticmethod(lambda name: None)})
+else:
+    # The library is there but cannot be loaded.
+    real = ctypes.CDLL
+    def refuse(name, *a, **kw):
+        if "netcore" in str(name) or "libhsnet" in str(name):
+            raise OSError(f"cannot load {name}")
+        return real(name, *a, **kw)
+    ctypes.CDLL = refuse
+out = {}
+try:
+    import hotstuff_tpu_torch.network as t_network
+    out["port"] = t_network.Receiver.__name__
+except Exception as e:
+    out["port"] = type(e).__name__
+if mode == "load":
+    import hotstuff_tpu.network as j_network
+    out["reference"] = j_network.Receiver.__name__
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("mode,raised", [("build", "KernelBuildError"), ("load", "OSError")])
+def test_native_switch_with_a_failing_library_raises_where_the_reference_falls_back(mode, raised):
+    result = run_probe(BROKEN_NET_PROBE, {"HOTSTUFF_NET": "native"}, mode)
+    assert result["port"] == raised
+    if mode == "load":
+        assert result["reference"] == "Receiver"  # the reference keeps asyncio
