@@ -346,6 +346,49 @@ unguarded (any failure ends the run with a non-zero exit):
       on ports 11400-11499, consensus receivers and vote broadcasts on the
       C++ engine: safe, recovered, its trace the compiled schedule's; its
       injection counts and recovery seconds after the heal.
+17. engine groups and the sim plane, run right after phase 2 (each group is
+   a spawned interpreter, started without this script as its main module);
+   this process launches no kernel in it (its counts are read before and
+   after, and must be unchanged), and after phase 16 it prints 17a's and
+   17b's ms per round beside phase 9's and 16a-b's:
+   a. ``EngineGroupRuntime`` (``parallel/engine_groups.py``): BASELINE config
+      2's shape, N = 100 (quorum 67, timeout 30 s) in 4 worker processes
+      started by spawn, each with phase 16's environment and
+      ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched`` (so each group verifies its
+      QCs on the card with its own backend, transport and arenas), ports
+      13000-13099. After the first commit on every node, 10 rounds are
+      timed. It fails unless every node commits every timed round, no
+      timer can have fired in them (no node went the 30 s timeout without a
+      commit reaching into them: every commit record's arrival is timed),
+      every group's ``crypto.dispatch.cuda`` moved, each group launched a
+      verdict and no more verdicts than it made card calls (a call still
+      in flight at its count may not have launched), and decompress, K2,
+      K3 and verdict each
+      launched in the groups (each group counts its own launches from 0
+      after it makes its backend, and ``stop`` sums them). It prints ms per
+      committed round, the timeouts and TCs of the whole run (a boot's: a
+      round whose leader's engine was not listening yet loses its votes and
+      waits out its timeout) with the timed-out rounds from the groups'
+      standard error (kept in a file), each group's ready time,
+      ``crypto.dispatch.cuda``, ``_sigs`` and launches, the merged
+      ``parallel.ring.*``, and the host's load, memory and CPU affinity as
+      the groups see them;
+   b. the same for BASELINE config 4 in protocol mode, as the reference's
+      ``committee_scale.py --mode protocol --nodes 1000 --groups 8`` runs it:
+      N = 1000 (quorum 667) in 8 groups, ports 13100-14099, 5 timed rounds
+      (its default is 20; the one cut, as 16b's), with the seconds to the
+      first commit and the open descriptors summed over the groups at the
+      window's end;
+   c. the sim plane (``hotstuff_tpu_torch/sim``) under the ``cpu`` backend,
+      set by the phase (the sim verifies inline; under a backend named
+      ``cuda`` it cannot run), as the reference's ``benchmark/sim_sweep.py
+      --seeds 0:300 --twins 24 --inject-wedge --gate`` runs it: chaos seeds
+      0-299 and 24 enumerated twins scenarios at N = 4, each safe and
+      recovered under the checker; the injected wedge (two permanent
+      crashes at N = 4), whose liveness violation is shrunk to a reproducer
+      that replays to it; a fault-free run rendered by ``sim/streams.py``
+      and scored by the watchtower with no alert. It prints seeds a minute
+      and ``crypto.verify_memo.hits``.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -366,7 +409,8 @@ row's times at 8 shards with both MSMs' results, and its
 runs, and its ``bench_*`` keys at the bench's widths, the decompression's
 ``bench_uncached_*`` at every uncached lane; ``launches_faultline`` from all
 of phase 15's runs together; ``launches_native_n100``, ``_n1000``, ``_config1``
-and ``_faultline`` from phase 16's parts a-d)
+and ``_faultline`` from phase 16's parts a-d; ``launches_groups_n100`` and
+``_n1000`` from phase 17a-b, counted in the groups and summed over them)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -420,6 +464,7 @@ from hotstuff_tpu_torch import crypto, faultline, network, telemetry  # noqa: E4
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
+from hotstuff_tpu_torch.consensus import decode_arena  # noqa: E402
 from hotstuff_tpu_torch.consensus.decode_arena import decode_shared  # noqa: E402
 from hotstuff_tpu_torch.consensus.statesync import (  # noqa: E402
     SNAPSHOT_KEY,
@@ -461,6 +506,11 @@ from hotstuff_tpu_torch.ops import msm_kernels as mk  # noqa: E402
 from hotstuff_tpu_torch.ops import sha512 as sha  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
 from hotstuff_tpu_torch.parallel import mesh as pm  # noqa: E402
+from hotstuff_tpu_torch.parallel.engine_groups import EngineGroupRuntime  # noqa: E402
+from hotstuff_tpu_torch.sim import SimWorld  # noqa: E402
+from hotstuff_tpu_torch.sim.shrink import shrink, sim_failure_probe, write_reproducer  # noqa: E402
+from hotstuff_tpu_torch.sim.streams import StreamRecorder, replay_watchtower  # noqa: E402
+from hotstuff_tpu_torch.sim.twins import enumerate_twins  # noqa: E402
 from hotstuff_tpu_torch.store import LogEngine, Store  # noqa: E402
 from hotstuff_tpu_torch.telemetry import profiler as pyprof  # noqa: E402
 from hotstuff_tpu_torch.telemetry.validate import validate_stream  # noqa: E402
@@ -665,6 +715,37 @@ NATIVE_N100_PORTS, NATIVE_NODE_PORTS, NATIVE_FAULT_PORTS = 11200, 11300, 11400
 NATIVE_N, NATIVE_PORTS, NATIVE_ROUNDS = 1000, 12000, 5
 NATIVE_TIMEOUT_S = 480
 NATIVE_RESULT = "phase 16 result: "
+# Phase 17: engine groups, the committee sharded over worker processes
+# (``parallel/engine_groups.py``, started by spawn), each group with the
+# environment of phase 16's child and the cuda-batched backend. a: BASELINE
+# config 2's shape (N = 100, 4 groups, 10 timed rounds); b: config 4 in
+# protocol mode as ``committee_scale.py --mode protocol --nodes 1000
+# --groups 8`` runs it, 5 timed rounds where its default is 20 (the one
+# cut, as 16b). Ports 13000-13099 and 13100-14099: below the H100 host's
+# ephemeral range, clear of phases 9-16. c: the sim plane, under the cpu
+# backend, as the reference's ``benchmark/sim_sweep.py --seeds 0:300
+# --twins 24 --inject-wedge --gate`` runs it.
+GROUP_ENV = {**NATIVE_ENV, "HOTSTUFF_CRYPTO_BACKEND": "cuda-batched"}
+GROUPS_N100 = (100, 4, 13000, 10)  # N, groups, base port, timed rounds
+GROUPS_N1000 = (1000, 8, 13100, 5)
+GROUP_BOOT_S, GROUP_ROUNDS_S = 90.0, 120.0
+SIM_SEEDS, SIM_TWINS, SIM_DURATION_S = 300, 24, 8.0
+SIM_WORLD = dict(timeout_delay=1_000, leader_elector="", link_delay_ms=(25.0, 75.0))
+# benchmark/sim_sweep.py's injected wedge: two permanent crashes at N = 4
+# (below quorum for good) among noise; its liveness violation is expected.
+SIM_WEDGE = {
+    "name": "injected-wedge", "seed": 3, "duration_s": 8.0,
+    "events": [
+        {"kind": "link", "src": "?", "dst": "*", "at": 1.0, "until": 3.0, "drop": 0.2,
+         "delay_ms": [5.0, 40.0]},
+        {"kind": "partition", "at": 2.0, "until": 4.0},
+        {"kind": "crash", "node": 1, "at": 2.5},
+        {"kind": "byzantine", "node": 0, "behavior": "stale_vote_flood", "at": 3.0, "until": 5.0},
+        {"kind": "crash", "node": 2, "at": 3.5},
+        {"kind": "link", "src": "*", "dst": "?", "at": 4.0, "until": 5.5, "drop": 0.1,
+         "delay_ms": [1.0, 10.0]},
+    ],
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -3735,6 +3816,7 @@ def native_child(seed: int, card: str, device, phase9_ms: float) -> dict:
           f"{nat['votes_dropped']}, votes_dropped_dup {nat['votes_dropped_dup']}; "
           f"crypto.dispatch.cuda +{dispatched} = verdict launches; {per_round(run)}")
     out["n100"] = run["launches"]
+    ms = {"n100": run["ms_per_round"]}
 
     # b. BASELINE config 4 in protocol mode: N = 1000.
     crypto.set_backend(BatchingBackend(batched.inner, max_sigs=batched.max_sigs))
@@ -3759,6 +3841,7 @@ def native_child(seed: int, card: str, device, phase9_ms: float) -> dict:
           f"{nat['votes_dropped_dup']}; out_conns {nat['out_conns']:+d}, frames_rx "
           f"{nat['frames_rx']}, frames_tx {nat['frames_tx']}")
     out["n1000"] = run["launches"]
+    ms["n1000"] = run["ms_per_round"]
 
     # c. BASELINE config 1 on the native transport and native stores.
     frozen = freeze_heap()
@@ -3805,15 +3888,17 @@ def native_child(seed: int, card: str, device, phase9_ms: float) -> dict:
           + f"; crypto.dispatch.cuda +{run['dispatched']} = verdict launches; run "
           f"{run['wall_s']:.1f} s")
     out["faultline"] = run["launches"]
+    out["ms"] = ms
     print(f"native: phase 16 (child) in {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
-def native_phase(seed: int, phase9_ms: float) -> dict:
+def native_phase(seed: int, phase9_ms: float) -> tuple[dict, dict]:
     """Phase 16: runs ``native_child`` in a child process with
     ``NATIVE_ENV`` set, prints its lines, and fails unless it exits 0 within
     ``NATIVE_TIMEOUT_S`` with every part's line and its result line.
-    Returns the child's launches by part."""
+    Returns the child's launches by part, and 16a's and 16b's ms per
+    committed round."""
     t = time.perf_counter()
     env = {**os.environ, **NATIVE_ENV}
     env.pop("HOTSTUFF_CRYPTO_BACKEND", None)
@@ -3843,8 +3928,249 @@ def native_phase(seed: int, phase9_ms: float) -> dict:
     results = [line for line in lines if line.startswith(NATIVE_RESULT)]
     check(len(results) == 1, "phase 16's child printed no result line")
     out = json.loads(results[0][len(NATIVE_RESULT):])
+    ms = out.pop("ms")
     print(f"native: phase 16 in {time.perf_counter() - t:.1f} s (HOTSTUFF_NET=native, "
           f"HOTSTUFF_CRYPTO_WORKERS=32, the child's start and kernel load included)")
+    return out, ms
+
+
+def mem_gib(path: str, field: str) -> float:
+    """A ``kB`` field of a ``/proc`` status file, in GiB."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def group_host_state(rt) -> str:
+    """What the host gives the groups: load average, CPU affinity (this
+    process's and each group's), each group's CPU seconds so far, and the
+    card's memory in use and utilisation."""
+    def cpu_s(pid: int) -> float:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+    alive = [g.process.pid for g in rt.groups if g.process is not None and g.process.is_alive()]
+    return (f"load {os.getloadavg()[0]:.1f}; host memory available {mem_gib('/proc/meminfo', 'MemAvailable'):.1f} GiB, "
+            f"resident: this process {mem_gib('/proc/self/status', 'VmRSS'):.1f} GiB, the groups "
+            f"{sum(mem_gib(f'/proc/{pid}/status', 'VmRSS') for pid in alive):.1f} GiB; "
+            f"CPUs for this process {len(os.sched_getaffinity(0))}"
+            f" of {os.cpu_count()}, for each group "
+            + "/".join(str(len(os.sched_getaffinity(pid))) for pid in alive)
+            + "; CPU s per group " + "/".join(f"{cpu_s(pid):.1f}" for pid in alive)
+            + f"; card memory used, utilisation: {nvidia_smi('memory.used,utilization.gpu')}")
+
+
+def grouped_committee(shape: tuple, env: dict) -> dict:
+    """One committee sharded over worker processes by ``EngineGroupRuntime``
+    (spawned, ``env`` set for them, their standard error to a file of their
+    own so that a flood of warnings cannot block their event loops): its
+    ``measure`` (each group's ready time, the first commit on every node,
+    the timed rounds and their stall bound: a node's round timer fires only
+    after a timeout without a round advance, and every commit advances its
+    round), each group's open descriptors at the window's end, then stop
+    with every group's final telemetry snapshot and launches. Fails unless
+    the groups spawned and every node committed every timed round (printing
+    the host's state and the merged counters when they stall);
+    ``groups_phase`` checks the rest."""
+    n, groups, base, rounds = shape
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    log = tempfile.NamedTemporaryFile("w+", prefix="groups-", suffix=".log")
+    stderr = os.dup(2)
+    t0 = time.perf_counter()
+    rt = EngineGroupRuntime(n, groups, base_port=base, timeout_delay=COMMITTEE_TIMEOUT_MS)
+    merged = None
+    try:
+        os.dup2(log.fileno(), 2)  # the spawned groups inherit it
+        try:
+            rt.start()
+        finally:
+            os.dup2(stderr, 2)
+        kinds = {type(g.process).__name__ for g in rt.groups}
+        try:
+            per_round = rt.measure(rounds, boot_timeout=GROUP_BOOT_S, round_timeout=GROUP_ROUNDS_S)
+        except (TimeoutError, RuntimeError):
+            print(f"groups N={n}: no progress; commits per node min {min(rt.commit_counts)} max "
+                  f"{max(rt.commit_counts)}; timing {rt.timing}; {group_host_state(rt)}", flush=True)
+            merged = rt.stop()
+            print(f"groups N={n}: merged counters " + json.dumps(
+                {k: v for k, v in sorted(merged["counters"].items())
+                 if k.startswith(("consensus.", "crypto.", "net."))}), flush=True)
+            raise
+        fds = {g.group_id: len(os.listdir(f"/proc/{g.process.pid}/fd")) for g in rt.groups}
+        host = group_host_state(rt)
+    finally:
+        if merged is None:
+            merged = rt.stop()
+        os.close(stderr)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log.seek(0)
+    lines = log.read().splitlines()
+    log.close()
+    timeouts = {}
+    for line in lines:
+        if line.startswith("Timeout reached for round "):
+            r = int(line.rsplit(" ", 1)[1])
+            timeouts[r] = timeouts.get(r, 0) + 1
+    check(kinds == {"SpawnProcess"}, f"the groups started as {kinds}")
+    per_group = {g.group_id: g.telemetry or {} for g in rt.groups}
+    rings = {key: sum(r.get(key, 0) for name, r in merged["rings"].items()
+                      if not name.endswith(".parent"))
+             for key in ("pushes", "push_bytes", "wraps")}
+    rings.update({key: sum(r["events"][key] for name, r in merged["rings"].items()
+                           if name.endswith(".parent")) for key in ("polls", "pops")})
+    return {"n": n, "groups": groups, "rounds": rounds, "ms_per_round": per_round * 1e3,
+            "ready_s": rt.timing["ready_s"], "host": host,
+            "first_commit_s": rt.timing["first_commit_s"], "stall_s": rt.timing["stall_s"],
+            "fds": fds, "counters": merged["counters"], "launches": merged["launches"],
+            "per_group": per_group, "rings": rings, "wall_s": time.perf_counter() - t0,
+            "log_lines": len(lines), "timeouts": timeouts}
+
+
+def groups_phase(card: str) -> dict:
+    """Phase 17a-b: engine groups at BASELINE config 2's shape and config
+    4's in protocol mode. Returns each part's run, its launches those the
+    groups counted and ``stop`` summed."""
+    out = {}
+    counter = "crypto.dispatch.cuda"
+    env_note = ", ".join(f"{k}={v}" for k, v in sorted(GROUP_ENV.items()))
+    for part, shape in (("17a", GROUPS_N100), ("17b", GROUPS_N1000)):
+        run = grouped_committee(shape, GROUP_ENV)
+        n, groups, base, rounds = shape
+        c, launches = run["counters"], run["launches"]
+        dispatched = c.get(counter, 0)
+        print(f"groups {part} on {card}: N={n} (quorum {2 * ((n - 1) // 3) + 1}) in {groups} "
+              f"spawned engine groups (node i in group i % {groups}; {env_note}), ports "
+              f"{base}-{base + n - 1}, timeout {COMMITTEE_TIMEOUT_MS} ms; groups ready "
+              f"{min(run['ready_s'].values()):.2f}-{max(run['ready_s'].values()):.2f} s and the "
+              f"first commit on every node {run['first_commit_s']:.2f} s after the start, then "
+              f"{rounds} timed rounds "
+              + (f"(committee_scale's default is 20; cut to {rounds}, as 16b) " if n == 1000 else "")
+              + f"every node committing each: {run['ms_per_round']:.2f} ms per committed round, "
+              f"{1e3 / run['ms_per_round']:.3f} rounds/s; fds at the window's end "
+              f"{sum(run['fds'].values())} summed over the groups "
+              f"({', '.join(str(v) for v in run['fds'].values())}); "
+              f"every node's longest wait for a commit reaching into the timed rounds "
+              f"{run['stall_s']:.2f} s (under the {COMMITTEE_TIMEOUT_MS / 1e3:.0f} s timeout: no "
+              f"timer fired in them); over the whole run consensus.timeouts_fired "
+              f"{c.get('consensus.timeouts_fired', 0)} (by round in the groups' "
+              f"{run['log_lines']} log lines: {run['timeouts'] or 'none'}), tcs_formed "
+              f"{c.get('consensus.tcs_formed', 0)}; run {run['wall_s']:.1f} s; at the window's "
+              f"end {run['host']}")
+        print(f"groups {part} on {card}: per group {counter} / _sigs / launches decompress, K2, "
+              f"K3, verdict: " + ", ".join(
+                  f"g{gid} {t.get('counters', {}).get(counter, 0)} / "
+                  f"{t.get('counters', {}).get(counter + '_sigs', 0)} / " + ", ".join(
+                      str(t.get("launches", {}).get(k, 0)) for k in PHASE8_KERNELS)
+                  for gid, t in run["per_group"].items())
+              + f"; merged {dispatched} calls, {c.get(counter + '_sigs', 0)} signatures, launches "
+              f"{launches}, consensus.blocks_committed {c.get('consensus.blocks_committed', 0)}; "
+              f"merged parallel.ring.* pushes {run['rings']['pushes']}, push_bytes "
+              f"{run['rings']['push_bytes']}, wraps {run['rings']['wraps']}, parent polls "
+              f"{run['rings']['polls']}, pops {run['rings']['pops']}")
+        check(run["stall_s"] < COMMITTEE_TIMEOUT_MS / 1e3,
+              f"{part}: a node went {run['stall_s']:.1f} s without a commit into the timed rounds")
+        for gid, t in run["per_group"].items():
+            calls = t.get("counters", {}).get(counter, 0)
+            check(calls > 0, f"{part}: group {gid}'s {counter} never moved")
+            # A call still in flight when the group read its counts has its
+            # dispatch counted and may not have launched yet: verdict <= calls.
+            check(0 < t.get("launches", {}).get("verdict", 0) <= calls,
+                  f"{part}: group {gid} made {calls} card calls and launched {t.get('launches')}")
+        for name in PHASE8_KERNELS:
+            check(launches.get(name, 0) > 0, f"{part}: kernel {name} never launched in the groups")
+        out[part] = run
+    return out
+
+
+def sim_phase(card: str) -> dict:
+    """Phase 17c: the sim plane on the card's host, as the reference's
+    ``benchmark/sim_sweep.py --seeds 0:300 --twins 24 --inject-wedge
+    --gate`` runs it, with the port's modules: chaos seeds at N = 4 and
+    twins scenarios, each gated by the checker; the injected wedge, shrunk
+    to a reproducer that replays to the same violation; and a fault-free
+    run rendered as telemetry streams and scored by the watchtower (no
+    alert). The sim verifies inline, so it runs under the cpu backend, set
+    here; the backend before it is put back after it."""
+    saved_backend = crypto._BACKEND
+    crypto.set_backend("cpu")
+    quiet = {name: logging.getLogger(name).level for name in ("consensus", "network", "faultline",
+                                                              "sim")}
+    for name in quiet:
+        logging.getLogger(name).setLevel(logging.ERROR)
+    telemetry.reset_for_tests()
+    telemetry.enable()
+    out = {}
+    try:
+        t = time.perf_counter()
+        runs, events = 0, 0
+        for seed in range(SIM_SEEDS):
+            result = SimWorld(faultline.chaos_scenario(seed, duration_s=SIM_DURATION_S), 4,
+                              **SIM_WORLD).run()
+            v = result["verdict"]
+            check(v["safety"]["ok"] and v["liveness"]["recovered"],
+                  f"17c: chaos seed {seed} violated the checker: {v['safety']} {v['liveness']}")
+            runs, events = runs + 1, events + result["events"]
+        for scenario, twins in enumerate_twins(4, duration_s=SIM_DURATION_S, limit=SIM_TWINS):
+            result = SimWorld(scenario, 4, twins=twins, **SIM_WORLD).run()
+            v = result["verdict"]
+            check(v["safety"]["ok"] and v["liveness"]["recovered"],
+                  f"17c: {scenario.name} violated the checker: {v['safety']} {v['liveness']}")
+            runs, events = runs + 1, events + result["events"]
+        sweep_s = time.perf_counter() - t
+        out["per_min"] = runs / sweep_s * 60.0
+        # The injected wedge: a liveness violation, shrunk and replayed.
+        t = time.perf_counter()
+        wedge = faultline.Scenario.from_json(SIM_WEDGE)
+        probe = sim_failure_probe(4, **SIM_WORLD)
+        violation, _ = probe(wedge)
+        check(violation == "liveness", f"17c: the injected wedge gave {violation}")
+        res = shrink(wedge, probe)
+        crashes = [e for e in res.scenario.events if e["kind"] == "crash"]
+        check(res.violation == "liveness" and len(crashes) == 2,
+              f"17c: the wedge shrank to {res.scenario.events} ({res.violation})")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = write_reproducer(tmp, res.scenario, 4, res.verdict, world=dict(SIM_WORLD),
+                                    steps=res.steps, tag="sim-shrunk")
+            with open(path) as f:
+                replay = faultline.Scenario.from_json(json.load(f)["scenario"])
+        check(probe(replay)[0] == "liveness", "17c: the reproducer did not replay the violation")
+        wedge_s = time.perf_counter() - t
+        # A fault-free run through sim/streams.py to the watchtower.
+        rec = StreamRecorder(interval_s=0.5)
+        SimWorld(faultline.Scenario(name="oracle-control-0", seed=0, duration_s=SIM_DURATION_S,
+                                    events=[]), 4, recorder=rec, **SIM_WORLD).run()
+        watch, alerts = replay_watchtower(rec)
+        lines = sum(len(v) for v in rec.render().values())
+        check(alerts == [], f"17c: the watchtower raised {alerts} on a fault-free run")
+        hits = telemetry.get_registry().snapshot()["counters"].get("crypto.verify_memo.hits", 0)
+        backend_name = type(crypto.get_backend()).__name__
+    finally:
+        crypto.set_backend(saved_backend)
+        crypto.enable_verify_memo(False)
+        telemetry.reset_for_tests()
+        telemetry.disable()
+        decode_arena.arena()._metrics()  # told that telemetry is off
+        for name, level in quiet.items():
+            logging.getLogger(name).setLevel(level)
+    print(f"sim 17c on the host of {card}: backend cpu ({backend_name}, set by the phase: "
+          f"the sim verifies inline and launches nothing); {SIM_SEEDS} chaos seeds at N=4 "
+          f"({SIM_DURATION_S:g} virtual s, link delay 25-75 ms, timeout 1 s) and {SIM_TWINS} twins "
+          f"scenarios, every one safe and recovered under the checker: {runs} schedules, "
+          f"{events} events in {sweep_s:.1f} s = {out['per_min']:.0f} seeds a minute; "
+          f"crypto.verify_memo.hits {hits}")
+    print(f"sim 17c on the host of {card}: injected wedge {len(wedge.events)} -> "
+          f"{len(res.scenario.events)} events ({res.runs} probe runs, steps {res.steps}), the "
+          f"reproducer replays to the liveness violation; {wedge_s:.1f} s. Fault-free run: "
+          f"{lines} stream lines from sim/streams.py, watchtower alerts 0")
+    out["hits"] = hits
     return out
 
 
@@ -3884,6 +4210,20 @@ def main() -> int:
         f"{name} {secs:.1f} s" for name, (secs, _) in sorted(kernel_build.build_log.items())))
     for name, (regs, stack, spill) in sorted(ptxas_usage().items()):
         print(f"  ptxas {name}: {regs} registers, {stack} B stack, {spill} B spill stores")
+
+    # 17, run here, right after the build: engine groups (the committee
+    # sharded over spawned worker processes, each verifying on the card) and
+    # the sim plane (under the cpu backend). This process launches nothing
+    # in it. Its comparison with phases 9 and 16 is printed after phase 16.
+    t = time.perf_counter()
+    before = launch_counts()
+    groups = groups_phase(card)
+    sim = sim_phase(card)
+    check(launch_counts() == before,
+          f"phase 17: this process launched kernels: {before} -> {launch_counts()}")
+    phase17_s = time.perf_counter() - t
+    print(f"phase 17 in {phase17_s:.1f} s (17a-b's spawns and 17c included); this process "
+          f"launched no kernel")
 
     # 3. the main path. Phases 3 to 7 run with the process-wide cert arena
     # off, so that a repeated verify of one QC pays the verify it is
@@ -4038,7 +4378,16 @@ def main() -> int:
     # 16. the native plane: phase 9's committee, BASELINE config 4 at
     # N = 1000, config 1 on native stores and a partition scenario, in a
     # child process on the C++ transport
-    native = native_phase(args.seed, committee_ms)
+    native, native_ms = native_phase(args.seed, committee_ms)
+
+    print(f"phase 17 beside the single-process committees of this call: 17a N=100 in 4 groups "
+          f"{groups['17a']['ms_per_round']:.2f} ms per committed round, 16a native "
+          f"{native_ms['n100']:.2f} ms, phase 9 asyncio {committee_ms:.2f} ms; 17b N=1000 in 8 "
+          f"groups {groups['17b']['ms_per_round']:.2f} ms, 16b native {native_ms['n1000']:.2f} ms, "
+          f"17b's first commit {groups['17b']['first_commit_s']:.2f} s after its start; 17c "
+          f"{sim['per_min']:.0f} seeds a minute, {sim['hits']} memo hits; phase 17 "
+          f"{phase17_s:.1f} s; launches counted in the groups, 17a "
+          f"{groups['17a']['launches']}, 17b {groups['17b']['launches']}")
 
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
@@ -4062,6 +4411,8 @@ def main() -> int:
             "launches_bench_uncached": bench_uncached[name],
             "launches_faultline": faultline_launches[name],
             **{f"launches_native_{part}": native[part][name] for part in native},
+            "launches_groups_n100": groups["17a"]["launches"][name],
+            "launches_groups_n1000": groups["17b"]["launches"][name],
         }
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
@@ -4095,6 +4446,8 @@ def main() -> int:
         "launches_bench_uncached": bench_uncached["sha512"],
         "launches_faultline": faultline_launches["sha512"],
         **{f"launches_native_{part}": native[part]["sha512"] for part in native},
+        "launches_groups_n100": groups["17a"]["launches"]["sha512"],
+        "launches_groups_n1000": groups["17b"]["launches"]["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

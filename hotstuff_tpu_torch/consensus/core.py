@@ -147,7 +147,7 @@ class Core:
         self.last_committed_round: Round = 0
         self.high_qc = QC.genesis()
         # IO seams: the asyncio stack uses the defaults (real timer, real
-        # best-effort sender); a test (or the reference's simulation plane)
+        # best-effort sender); a test (or the simulation plane, sim/machine.py)
         # injects a virtual-clock timer and an effect-collecting outbox so
         # the SAME handlers run sans-io.
         self.timer = timer if timer is not None else Timer(timeout_delay)
@@ -530,8 +530,8 @@ class Core:
     def _call_later(self, delay_s: float, item) -> None:
         """Re-inject ``item`` onto the merged event queue after
         ``delay_s``. This is the Core's only self-scheduling primitive
-        (QC-retry backoff) — a driver without a loop (the reference's
-        simulation plane) overrides it to push a virtual-time event instead
+        (QC-retry backoff) — a driver without a loop (the simulation plane,
+        sim/machine.py) overrides it to push a virtual-time event instead
         of sleeping."""
 
         async def later() -> None:

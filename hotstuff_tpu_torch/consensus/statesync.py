@@ -1,11 +1,11 @@
 """Replica state sync and snapshot/truncate log compaction.
 
-Port copy of ``hotstuff_tpu/consensus/statesync.py``, whole but for the
-simulation plane's switch that leaves the probe loop unarmed (the port has
-no simulation plane), with the reference's telemetry gauges and counters
-(``statesync.*``, ``store.compactions``, ``store.compaction_bytes_freed``,
-``store.snapshot_round``) and the same counts as int attributes. Two cooperating pieces, both driven by the Core's
-event loop:
+Port copy of ``hotstuff_tpu/consensus/statesync.py``, whole, with the
+reference's telemetry gauges and counters (``statesync.*``,
+``store.compactions``, ``store.compaction_bytes_freed``,
+``store.snapshot_round``) and the same counts as int attributes. Two
+cooperating pieces, both driven by the Core's event loop (no new tasks, so
+the simulation plane, ``hotstuff_tpu_torch/sim``, runs them unmodified):
 
 **StateSync**: anti-entropy catch-up for cold-joining or lagging replicas.
 A node whose commit frontier stops advancing probes peers (one per tick,
@@ -147,16 +147,22 @@ class StateSync:
     """Anti-entropy protocol driver. Bound to a Core at ``start`` and fed
     by its event loop (``state_request`` / ``state_response`` /
     ``statesync_tick`` events); all scheduling goes through the Core's
-    ``_call_later`` seam."""
+    ``_call_later`` seam, so the simulation plane drives this class on the
+    virtual clock without modification."""
 
     #: Ticks before an unresolved direct frontier pull is presumed bogus
     #: and cancelled (a servable block resolves far sooner).
     PULL_TTL_TICKS = 3
 
-    def __init__(self, name: PublicKey, committee: Committee, sync_retry_delay: int) -> None:
+    def __init__(
+        self, name: PublicKey, committee: Committee, sync_retry_delay: int, active: bool = True
+    ) -> None:
         self.name = name
         self.committee = committee
         self.tick_delay_s = sync_retry_delay / 1000.0
+        #: probe loop armed (real nodes: yes; opt-in in simulation so that
+        #: committed sweep seeds keep byte-identical event streams).
+        self.active = active
         self._core = None
         self._peers = [pk for pk, _ in committee.broadcast_addresses(name)]
         self._next_peer = 0
@@ -207,7 +213,8 @@ class StateSync:
                 core.update_high_qc(snap.cert)
                 if core.round <= snap.cert.round:
                     core.round = snap.cert.round + 1
-        self._schedule_tick()
+        if self.active:
+            self._schedule_tick()
 
     def _schedule_tick(self) -> None:
         self._core._call_later(self.tick_delay_s, ("statesync_tick", None))

@@ -19,10 +19,14 @@ the QC and TC path — goes to the active backend: ``"cuda"``
 variants ``"cuda-batched"``/``"cpu-batched"`` (``crypto/batching.py``), or
 a backend object; unless one is set, the first ``get_backend()`` takes the
 name from ``HOTSTUFF_CRYPTO_BACKEND``. ``CpuBackend`` counts its dispatches
-into the reference's ``crypto.dispatch.cpu*`` telemetry counters. Left in
-the reference: the opt-in verdict memo (with its
-``crypto.verify_memo.hits`` counter) and the signer memo of its simulation
-plane.
+into the reference's ``crypto.dispatch.cpu*`` telemetry counters.
+
+The reference's opt-in process-wide verdict memo (``enable_verify_memo``,
+``crypto.verify_memo.hits``) and the signer memo beside it are here, for the
+simulation plane (``hotstuff_tpu_torch/sim``), which turns them on. One
+difference, by design: a ``BackendUnavailable`` is never memoised (the
+reference's ``except CryptoError`` would cache one as a failure verdict,
+since it is a ``CryptoError``); it stays unjudged and raises again.
 """
 
 from __future__ import annotations
@@ -166,7 +170,24 @@ def _expanded(seed: bytes) -> tuple[int, bytes, bytes]:
 
 
 def _sign_ref(seed: bytes, msg: bytes) -> bytes:
-    """RFC 8032 signing without OpenSSL; byte-identical to OpenSSL's."""
+    """RFC 8032 signing without OpenSSL; byte-identical to OpenSSL's.
+
+    Signing is deterministic in (key, msg): under the opt-in memo (the
+    simulation plane) a repeated signing of identical bytes (a sweep's
+    seeds share their fault-free prefixes) skips the scalar multiplication
+    (reference ``crypto/__init__.py:140-152``)."""
+    memo = _VERIFY_MEMO
+    if memo is None:
+        return _sign_now(seed, msg)
+    key = (b"sign", _expanded(seed)[1], msg)
+    sig = memo.get(key)
+    if sig is None:
+        sig = _sign_now(seed, msg)
+        _memo_put(memo, key, sig)
+    return sig
+
+
+def _sign_now(seed: bytes, msg: bytes) -> bytes:
     a, prefix, pub = _expanded(seed)
     r = int.from_bytes(hashlib.sha512(prefix + msg).digest(), "little") % ed25519_ref.L
     big_r = _scalarmult_base(r)
@@ -270,7 +291,27 @@ class Signature:
     def verify(self, digest: Digest, public_key: PublicKey) -> None:
         """Strict single verification (dalek ``verify_strict``: canonical
         encodings, no small-order A or R, cofactorless equation). Raises
-        CryptoError."""
+        CryptoError. Through the opt-in memo when it is on (reference
+        ``crypto/__init__.py:505-521``)."""
+        memo = _VERIFY_MEMO
+        if memo is None:
+            return self._verify_now(digest, public_key)
+        key = (digest.data, public_key.data, self.data)
+        hit = memo.get(key)
+        if hit is not None:
+            if hit is True:
+                return
+            raise CryptoError(hit)
+        try:
+            self._verify_now(digest, public_key)
+        except BackendUnavailable:
+            raise
+        except CryptoError as e:
+            _memo_put(memo, key, str(e))
+            raise
+        _memo_put(memo, key, True)
+
+    def _verify_now(self, digest: Digest, public_key: PublicKey) -> None:
         if not _strict_point_checks(public_key.data, self.data):
             raise CryptoError("small-order or non-canonical point in signature")
         if _HAVE_PYCA:
@@ -328,12 +369,14 @@ _STRICT_FUSER = None  # BatchingBackend over _StrictSingleBackend, or False
 
 def _verify_single_gated(msg: bytes, pub: bytes, sig: bytes) -> bool:
     """Strict single verification without OpenSSL (reference
-    ``crypto/__init__.py:211-250``, less its memo branch): the cofactorless
-    equation on the native engine, through a fuser that dedups identical
-    concurrent requests (each verdict stays exact: the fuser re-verifies
-    one by one when a fused flush rejects), else the pure-Python strict
-    oracle. The small-order and canonicality rejections run in the
-    caller."""
+    ``crypto/__init__.py:211-250``): the cofactorless equation on the
+    native engine, through a fuser that dedups identical concurrent
+    requests (each verdict stays exact: the fuser re-verifies one by one
+    when a fused flush rejects), else the pure-Python strict oracle. Under
+    the memo (the simulation plane) the caller already dedups identical
+    verifies across time, so the fuser's cross-thread handoff would only
+    cost: one direct MSM. The small-order and canonicality rejections run
+    in the caller."""
     global _STRICT_FUSER
     if _STRICT_FUSER is None:
         if native_ed25519.native_available():
@@ -344,6 +387,8 @@ def _verify_single_gated(msg: bytes, pub: bytes, sig: bytes) -> bool:
             _STRICT_FUSER = False
     if _STRICT_FUSER is False:
         return ed25519_ref.verify(pub, msg, sig, strict=True)
+    if _VERIFY_MEMO is not None:
+        return native_ed25519.verify_single_strict_native(msg, pub, sig)
     try:
         _STRICT_FUSER.verify_batch([msg], [pub], [sig])
         return True
@@ -358,12 +403,69 @@ def _verify_single_gated(msg: bytes, pub: bytes, sig: bytes) -> bool:
 # ---------------------------------------------------------------------------
 
 
+# Opt-in process-wide verification-verdict memo (reference
+# ``crypto/__init__.py:253-290``). Verification is a pure function of the
+# (message, key, signature) bytes, so a memoised verdict is semantically
+# invisible; it is still opt-in, since when one process models a whole
+# committee a hit skips work every real node would do itself, which would
+# falsify the committee benchmarks. The simulation plane turns it on:
+# there the object of study is the protocol under fault schedules, and
+# identical re-verifies across simulated nodes and seeds are waste. Failure
+# verdicts are cached too (byzantine resends stay cheap);
+# ``BackendUnavailable`` never is.
+
+_VERIFY_MEMO: dict | None = None
+_VERIFY_MEMO_CAP = 1 << 16
+
+
+def enable_verify_memo(enabled: bool = True) -> None:
+    """Turn the process-wide verification memo on (idempotent: an existing
+    memo is kept warm) or off (drops it)."""
+    global _VERIFY_MEMO
+    if enabled:
+        if _VERIFY_MEMO is None:
+            _VERIFY_MEMO = {}
+    else:
+        _VERIFY_MEMO = None
+
+
+def verify_memo_enabled() -> bool:
+    return _VERIFY_MEMO is not None
+
+
+def _memo_put(memo: dict, key, verdict) -> None:
+    if len(memo) >= _VERIFY_MEMO_CAP:
+        memo.clear()  # coarse bound; sim working sets rarely get here
+    memo[key] = verdict
+
+
 def backend_verify_batch(msgs, pubs, sigs) -> None:
-    """Dispatch a batch verification to the active backend. All structured
-    certificate paths (``Signature.verify_batch``/``verify_batch_multi``
-    and the wire-v2 raw-slice path of ``consensus/messages.py``) route
-    here (reference ``crypto/__init__.py:292``, without its opt-in memo)."""
-    get_backend().verify_batch(msgs, pubs, sigs)
+    """Dispatch a batch verification to the active backend, through the
+    opt-in verdict memo when it is on. All structured certificate paths
+    (``Signature.verify_batch``/``verify_batch_multi`` and the wire-v2
+    raw-slice path of ``consensus/messages.py``) route here (reference
+    ``crypto/__init__.py:292-318``)."""
+    memo = _VERIFY_MEMO
+    if memo is None:
+        return get_backend().verify_batch(msgs, pubs, sigs)
+    # Order-independent key: a QC's signature set is verified by the
+    # assembling leader in arrival order and again off the wire in seat
+    # order; one set, one verdict, one memo entry.
+    key = tuple(sorted(zip(msgs, pubs, sigs)))
+    hit = memo.get(key)
+    if hit is not None:
+        telemetry.counter("crypto.verify_memo.hits").inc()
+        if hit is True:
+            return
+        raise CryptoError(hit)
+    try:
+        get_backend().verify_batch(msgs, pubs, sigs)
+    except BackendUnavailable:
+        raise
+    except CryptoError as e:
+        _memo_put(memo, key, str(e))
+        raise
+    _memo_put(memo, key, True)
 
 
 # A wire-v2 certificate is a seat bitmap plus one packed signature buffer;
@@ -400,13 +502,15 @@ def backend_verify_cert(msgs, pubs, sig_buf, stride: int = 64, key=None) -> None
     (TC). ``key`` is an optional canonical cert identity that the
     super-batching layer uses to dedup concurrent verifies of one cert.
     Raises CryptoError on an invalid cert. Explodes the cert into
-    ``backend_verify_batch`` when ``HOTSTUFF_AGG_QC=0`` or when the active
-    backend has no fused entry point (``CudaBackend`` has none, as the
-    reference's ``TpuBackend``)."""
+    ``backend_verify_batch`` when the verdict memo is on (the simulation
+    plane: exploded triples keep ONE memo keyspace with the structured
+    paths), when ``HOTSTUFF_AGG_QC=0``, or when the active backend has no
+    fused entry point (``CudaBackend`` has none, as the reference's
+    ``TpuBackend``)."""
     n = len(pubs)
     if n == 0:
         return
-    if not agg_qc_enabled():
+    if _VERIFY_MEMO is not None or not agg_qc_enabled():
         return backend_verify_batch(*_explode_cert(msgs, pubs, sig_buf, stride, n))
     backend = get_backend()
     fused = getattr(backend, "verify_cert", None)
@@ -558,13 +662,18 @@ class SignatureService:
     """Holds the secret key and signs digests on request (reference
     ``crypto/src/lib.rs:222-250``, an actor there). Signing takes
     microseconds, so it runs inline in the awaiting task; the async API is
-    kept so that callers are the reference's."""
+    kept so that callers are the reference's. As the reference's
+    (``hotstuff_tpu/crypto/__init__.py:761-781``), it keeps OpenSSL's key
+    object, whose construction costs more than a signature."""
 
     def __init__(self, secret: SecretKey) -> None:
         self._secret = secret
+        self._sk = Ed25519PrivateKey.from_private_bytes(secret.seed) if _HAVE_PYCA else None
 
     async def request_signature(self, digest: Digest) -> Signature:
-        return Signature.new(digest, self._secret)
+        if self._sk is not None:
+            return Signature(self._sk.sign(digest.data))
+        return Signature(_sign_ref(self._secret.seed, digest.data))
 
 
 __all__ = [
@@ -581,6 +690,8 @@ __all__ = [
     "agg_qc_enabled",
     "backend_verify_batch",
     "backend_verify_cert",
+    "enable_verify_memo",
     "get_backend",
     "set_backend",
+    "verify_memo_enabled",
 ]

@@ -79,8 +79,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "mempool.dataplane.dataplane",
                  "network.budget", "network.receiver", "network.reliable_sender",
                  "network.simple_sender", "network.native", "store", "store.native",
-                 "utils.quorum", "utils.tasks", "utils.scenario_runs",
-                 "utils.logging", "ops.sha512", "mempool", "mempool.messages", "mempool.config",
+                 "utils.quorum", "utils.tasks", "utils.scenario_runs", "utils.logging",
+                 "ops.sha512", "mempool", "mempool.messages", "mempool.config",
                  "mempool.batch_maker", "mempool.quorum_waiter", "mempool.processor",
                  "mempool.helper", "mempool.mempool", "node", "node.config", "node.node",
                  "node.__main__", "node.client", "parallel", "parallel.mesh",
@@ -90,7 +90,9 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "telemetry.resources", "telemetry.slo", "telemetry.validate",
                  "telemetry.watchtower", "faultline", "faultline.hooks", "faultline.policy",
                  "faultline.runtime", "faultline.checker", "faultline.byzantine",
-                 "faultline.harness"):
+                 "faultline.harness", "parallel.engine_groups", "sim", "sim.clock",
+                 "sim.machine", "sim.world", "sim.shrink", "sim.twins", "sim.dataplane",
+                 "sim.statesync", "sim.streams"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:

@@ -36,6 +36,10 @@ at import or construction, so each case runs in a fresh interpreter. One
 departure is held: with ``HOTSTUFF_NET=native``, a native library that
 cannot be built or loaded makes the port's ``network`` import raise, where
 the reference logs a warning and keeps asyncio.
+
+And the engine groups': ``HOTSTUFF_ENGINE_GROUPS`` gives both packages'
+``groups_from_env`` the same count (unset, junk or negative: 0, one
+process).
 """
 
 import pytest
@@ -378,3 +382,16 @@ def test_native_switch_with_a_failing_library_raises_where_the_reference_falls_b
     assert result["port"] == raised
     if mode == "load":
         assert result["reference"] == "Receiver"  # the reference keeps asyncio
+
+
+@pytest.mark.parametrize("value,groups", [(None, 0), ("0", 0), ("4", 4), ("8", 8), ("junk", 0),
+                                          ("-2", 0), ("", 0)])
+def test_engine_groups_switch_means_the_same_in_both_packages(monkeypatch, value, groups):
+    from hotstuff_tpu.parallel import engine_groups as j_groups
+    from hotstuff_tpu_torch.parallel import engine_groups as t_groups
+
+    if value is None:
+        monkeypatch.delenv("HOTSTUFF_ENGINE_GROUPS", raising=False)
+    else:
+        monkeypatch.setenv("HOTSTUFF_ENGINE_GROUPS", value)
+    assert t_groups.groups_from_env() == j_groups.groups_from_env() == groups
