@@ -389,6 +389,47 @@ unguarded (any failure ends the run with a non-zero exit):
       that replays to it; a fault-free run rendered by ``sim/streams.py``
       and scored by the watchtower with no alert. It prints seeds a minute
       and ``crypto.verify_memo.hits``.
+18. the measurement harness: the port's copies of the reference's benchmark
+   scripts (``hotstuff_tpu_torch/benchmark/``), each child started as
+   ``python -m hotstuff_tpu_torch.benchmark.<name>`` in a session of its own
+   (killed with everything it started after it ends, or after 300 s), its
+   output printed, with no ``HOTSTUFF_*`` switch but those named here:
+   a. ``committee_scale --mode crypto --rounds 20 --output <tmp>`` under
+      ``HOTSTUFF_CRYPTO_BACKEND=cuda`` with ``HOTSTUFF_CERT_ARENA=0`` (so
+      every round pays its verifies) at ``--nodes 400`` (BASELINE config
+      3), ``--nodes 1000`` (config 4) and ``--nodes 1000 --tc-heavy`` (its
+      view-change regime): each printed line must parse, say what was asked
+      for, ``backend=cuda`` and ``transport=asyncio``, and be what its
+      result file holds. Then ``run_crypto_rounds`` of each in this process
+      under ``cuda`` with the counts zeroed before and read after: each
+      verify (the warm-up and 20 rounds, a QC and with ``--tc-heavy`` a TC)
+      launches K2 2, K3 2, verdict 1, decompress at least 1 (keys entering
+      the card's cache), K4 never. The cached kernels are held against
+      their plain versions at each width (mf, mc) it ran that no earlier
+      phase held;
+   b. ``committee_scale --mode protocol --nodes 100 --rounds 10 --profile
+      --telemetry <tmp> --base-port 14100`` under ``cuda-batched`` and
+      ``HOTSTUFF_NET=native``: its line must say ``transport=native``, its
+      stage table must have rows, its result file must hold both, and its
+      stream's ``crypto.dispatch.cuda`` must move between the first and the
+      last snapshot;
+   c. ``digest_bench`` on its default grid (8/32/128 drains of 512 B,
+      15 kB and 500 kB) in this process, with the counts zeroed before and
+      read after: ``sha512`` launches 7 times a drain (the script's own
+      check against ``hashlib``, its warm-up and 5 timed calls) and no
+      other kernel; then from its command line for the ``RECOMMEND`` line;
+   d. ``superbatch_bench`` with its defaults (24 QCs of 67 signatures,
+      8 threads) under ``cuda`` in this process, the counts zeroed before
+      and read after: 79 requests, and K2 2, K3 2, verdict 1 for each
+      ``CudaBackend`` call (31 lone and 48 contended on the plain backend,
+      and the wrapper's inner calls), decompress at least as many, K4
+      never; the kernels held at the widths no earlier phase held;
+   e. ``run_local --nodes 4 --rate 1000 --duration 20 --telemetry
+      --base-port 14300 --crypto-backend cuda`` (BASELINE config 1, four
+      node and four client processes): exit 0 (``LogParser`` rejects a
+      panic), the SUMMARY's TPS and latencies parse, consensus TPS above
+      0, and each node's stream's ``crypto.dispatch.cuda`` above 0. Its
+      committed tx/s is printed beside 10c's.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -410,7 +451,12 @@ runs, and its ``bench_*`` keys at the bench's widths, the decompression's
 ``bench_uncached_*`` at every uncached lane; ``launches_faultline`` from all
 of phase 15's runs together; ``launches_native_n100``, ``_n1000``, ``_config1``
 and ``_faultline`` from phase 16's parts a-d; ``launches_groups_n100`` and
-``_n1000`` from phase 17a-b, counted in the groups and summed over them)
+``_n1000`` from phase 17a-b, counted in the groups and summed over them;
+``launches_harness_crypto``, ``_digest`` and ``_superbatch`` from phase
+18a, c and d in this process, the ``harness_crypto_*`` and
+``harness_superbatch_*`` keys at the widest width that 18a and 18d held
+first, and on the verdict's row ``harness_dispatch_cuda``, the
+``crypto.dispatch.cuda`` that 18b's and 18e's children streamed)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -419,14 +465,18 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import contextvars
 import functools
 import gc
+import glob
 import hashlib
+import io
 import json
 import logging
 import os
 import random
+import re
 import resource
 import shutil
 import signal
@@ -461,6 +511,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import bench_torch  # noqa: E402
 from hotstuff_tpu_torch import crypto, faultline, network, telemetry  # noqa: E402
+from hotstuff_tpu_torch.benchmark import committee_scale, digest_bench, logs  # noqa: E402
+from hotstuff_tpu_torch.benchmark import superbatch_bench  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
@@ -547,6 +599,9 @@ WARM_QC_LAUNCHES = {"decompress": 1, "sqrt_pow": 0, "msm_partials_signed": 2, "m
 WARM_QC_ALL = {**WARM_QC_LAUNCHES, "sha512": 0}
 # Phase 7's ceiling per warm QC: aten ops the profiler sees, and device ops.
 MAX_ATEN_OPS, MAX_DEVICE_OPS = 400, 60
+# Every cached-path width (mf, mc) whose kernels were held against their
+# plain versions in this run; phase 18 holds only the widths not in it.
+CHECKED_WIDTHS: set[tuple[int, int]] = set()
 
 # The bound. These kernels are bound by int32 multiply-adds (IMAD): a field
 # mul is a 20 x 20 limb schoolbook, 400 IMADs. A Hopper SM issues 64 int32
@@ -746,6 +801,31 @@ SIM_WEDGE = {
          "delay_ms": [1.0, 10.0]},
     ],
 }
+
+
+# Phase 18: the port's copies of the reference's benchmark scripts
+# (``hotstuff_tpu_torch/benchmark/``), through the command lines a user
+# types. a: ``committee_scale --mode crypto`` at BASELINE config 3 (N = 400),
+# config 4 (N = 1000) and config 4's view-change regime (``--tc-heavy``), the
+# script's default 20 rounds, with the cert arena off so that every round
+# pays its verifies; b: ``--mode protocol`` at N = 100 (config 2's shape) on
+# the native transport, profiled; c: ``digest_bench``'s default grid; d:
+# ``superbatch_bench``'s defaults; e: ``run_local`` at BASELINE config 1.
+# Ports 14100-14199 (b) and 14300-14319 (e): below the H100 host's
+# ephemeral range, clear of the other phases.
+REPO = os.path.dirname(os.path.abspath(__file__))
+HARNESS_CRYPTO = ((400, False), (1000, False), (1000, True))  # N, --tc-heavy
+HARNESS_ROUNDS = 20
+HARNESS_PROTOCOL = (100, 10, 14100)  # N, rounds, base port
+HARNESS_LOCAL = (4, 1000, 20, 14300)  # nodes, tx/s, seconds, base port
+HARNESS_TIMEOUT_S = 300
+COMMITTEE_LINE = re.compile(
+    r"committee=(?P<n>\d+) \(f=(?P<f>\d+), QC size (?P<q>\d+)\) mode=(?P<mode>\w+)"
+    r"(?P<tc> tc-heavy)?(?: groups=\d+)? backend=(?P<backend>\S+) transport=(?P<transport>\w+): "
+    r"(?P<ms>[\d.]+) ms/round \((?P<rps>[\d.]+) rounds/s\)")
+SUPERBATCH_FUSION = re.compile(r"fusion: (?P<requests>\d+) requests in (?P<calls>\d+) inner calls")
+SUMMARY_FIGURE = re.compile(r" (?P<what>Consensus TPS|Consensus latency|End-to-end TPS|"
+                            r"End-to-end latency): (?P<value>[\d,]+) (?:tx/s|ms)")
 
 
 class SmokeFailure(RuntimeError):
@@ -1087,6 +1167,7 @@ def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = Tr
         if name == "cached":
             rows["verdict"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                                    shape=f"ok [{m}], a, b [4, 20]")
+    CHECKED_WIDTHS.add((mf, mc))
     return rows, notes, (mf, mc, m_u)
 
 
@@ -4174,6 +4255,314 @@ def sim_phase(card: str) -> dict:
     return out
 
 
+# -- phase 18: the measurement harness on the card -----------------------------
+
+
+def harness_env(**switches: str) -> dict:
+    """The environment of a phase 18 child: this process's, without any
+    ``HOTSTUFF_*`` switch an earlier phase set, plus ``switches``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HOTSTUFF_")}
+    env.update(switches)
+    return env
+
+
+def run_script(module: str, args: list[str], env: dict) -> tuple[list[str], float]:
+    """``python -m hotstuff_tpu_torch.benchmark.<module> args`` as a user
+    types it, in a session of its own: its standard output printed and
+    returned with its seconds. Fails unless it exits 0 within
+    ``HARNESS_TIMEOUT_S``; every process it started is killed after it."""
+    cmd = [sys.executable, "-m", f"hotstuff_tpu_torch.benchmark.{module}", *args]
+    what = f"{module} {' '.join(args)}"
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env, cwd=REPO,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=HARNESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        out = None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if proc.poll() is None:
+            proc.wait()
+    secs = time.perf_counter() - t
+    check(out is not None, f"{what} ran past {HARNESS_TIMEOUT_S} s")
+    lines = out.splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    return lines, secs
+
+
+def committee_line(lines: list[str], n: int, mode: str, tc_heavy: bool) -> re.Match:
+    """committee_scale's one result line among ``lines``, parsed and checked
+    against what was asked for."""
+    found = [m for m in map(COMMITTEE_LINE.fullmatch, lines) if m]
+    check(len(found) == 1, f"committee_scale printed {len(found)} result lines at N={n}")
+    m = found[0]
+    f = (n - 1) // 3
+    check((int(m["n"]), int(m["f"]), int(m["q"]), m["mode"], bool(m["tc"]))
+          == (n, f, 2 * f + 1, mode, tc_heavy), f"committee_scale's line says {m[0]!r}")
+    return m
+
+
+def result_file_holds(path: str, lines: list[str]) -> None:
+    check(os.path.isfile(path), f"no result file {path}")
+    with open(path) as f:
+        check(f.read() == "".join(line + "\n" for line in lines),
+              f"{path} does not hold the printed lines")
+
+
+def harness_widths(widths: dict, inner: CudaBackend, device, imad_per_s: float,
+                   what: str) -> dict:
+    """The cached kernels against their plain versions at the widths of
+    ``widths`` that no earlier phase held; their rows ({} when none)."""
+    new = {w: b for w, b in widths.items() if w not in CHECKED_WIDTHS}
+    seen = sorted(set(widths) - set(new))
+    print(f"harness {what}: widths (mf, mc) {sorted(widths)}; held earlier in this run: {seen}")
+    return width_checks(new, inner, device, imad_per_s, what) if new else {}
+
+
+def harness_crypto(card: str, device, imad_per_s: float) -> tuple[dict, dict]:
+    """18a: ``committee_scale --mode crypto`` at BASELINE configs 3 and 4
+    and config 4's view-change regime, each from its command line, then
+    ``run_crypto_rounds`` in this process under ``cuda`` with the launches
+    counted. Returns (the in-process launches, the kernels' rows at the
+    widths no earlier phase held)."""
+    env = harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda", HOTSTUFF_CERT_ARENA="0")
+    tmp = tempfile.mkdtemp(prefix="phase18a-")
+    try:
+        for n, tc_heavy in HARNESS_CRYPTO:
+            args = ["--mode", "crypto", "--nodes", str(n), "--rounds", str(HARNESS_ROUNDS),
+                    "--output", tmp] + (["--tc-heavy"] if tc_heavy else [])
+            lines, secs = run_script("committee_scale", args, env)
+            m = committee_line(lines, n, "crypto", tc_heavy)
+            check((m["backend"], m["transport"]) == ("cuda", "asyncio"),
+                  f"committee_scale ran under {m['backend']} on {m['transport']}")
+            result_file_holds(os.path.join(tmp, f"committee-crypto{'-tc' if tc_heavy else ''}"
+                                                f"-{m['backend']}-{n}.txt"), [m[0]])
+            print(f"harness 18a on {card}: committee_scale --mode crypto --nodes {n}"
+                  f"{' --tc-heavy' if tc_heavy else ''} --rounds {HARNESS_ROUNDS} "
+                  f"(HOTSTUFF_CRYPTO_BACKEND=cuda, HOTSTUFF_CERT_ARENA=0): {m['ms']} ms/round "
+                  f"({m['rps']} rounds/s); the result file holds the line; child {secs:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    saved_backend, saved_arena = crypto._BACKEND, os.environ.get("HOTSTUFF_CERT_ARENA")
+    os.environ["HOTSTUFF_CERT_ARENA"] = "0"
+    crypto.set_backend("cuda")
+    backend = crypto.get_backend()
+    recorder = VerifyWidths(backend)
+    try:
+        reset_launches()
+        for n, tc_heavy in HARNESS_CRYPTO:
+            before = launch_counts()
+            ms = committee_scale.run_crypto_rounds(n, HARNESS_ROUNDS, tc_heavy) * 1e3
+            got = {k: v - before[k] for k, v in launch_counts().items()}
+            verifies = (HARNESS_ROUNDS + 1) * (2 if tc_heavy else 1)
+            want = {k: c * verifies for k, c in WARM_QC_ALL.items() if k != "decompress"}
+            check({k: got[k] for k in want} == want and got["decompress"] >= verifies,
+                  f"18a N={n}{' tc-heavy' if tc_heavy else ''} launched {got} for {verifies} "
+                  f"certificate verifies")
+            print(f"harness 18a on {card}: run_crypto_rounds({n}, {HARNESS_ROUNDS}, "
+                  f"tc_heavy={tc_heavy}) here: {ms:.2f} ms/round; launches "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(got.items()) if v))
+        launches = launch_counts()
+    finally:
+        widths, sig_counts = recorder.stop()
+        crypto._BACKEND = saved_backend
+        if saved_arena is None:
+            os.environ.pop("HOTSTUFF_CERT_ARENA", None)
+        else:
+            os.environ["HOTSTUFF_CERT_ARENA"] = saved_arena
+    for name in PHASE8_KERNELS:
+        check(launches[name] > 0, f"18a: kernel {name} never launched")
+    check(launches["msm_partials"] == 0, f"18a: K4 launched {launches['msm_partials']} times")
+    print(f"harness 18a on {card}: CudaBackend calls by signatures {sig_counts}")
+    return launches, harness_widths(widths, backend, device, imad_per_s, "18a")
+
+
+def harness_protocol(card: str) -> tuple[float, int]:
+    """18b: ``committee_scale --mode protocol`` at N = 100 under
+    ``cuda-batched`` on the native transport, profiled, with its telemetry
+    stream. Returns (ms per round, the stream's ``crypto.dispatch.cuda``
+    over the measured window)."""
+    n, rounds, base = HARNESS_PROTOCOL
+    tmp = tempfile.mkdtemp(prefix="phase18b-")
+    stream = os.path.join(tmp, f"telemetry-committee-{n}.jsonl")
+    try:
+        lines, secs = run_script("committee_scale", [
+            "--mode", "protocol", "--nodes", str(n), "--rounds", str(rounds), "--profile",
+            "--telemetry", stream, "--base-port", str(base), "--output", tmp],
+            harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda-batched", HOTSTUFF_NET="native"))
+        m = committee_line(lines, n, "protocol", False)
+        check((m["backend"], m["transport"]) == ("cuda+superbatch", "native"),
+              f"committee_scale ran under {m['backend']} on {m['transport']}")
+        at = lines.index(m[0])
+        table = lines[at + 1:at + 2]
+        for line in lines[at + 2:]:
+            if not line.startswith("  "):
+                break
+            table.append(line)
+        check(len(table) > 2 and table[0].startswith("per-stage handler cost"),
+              "committee_scale --profile printed no stage table")
+        result_file_holds(os.path.join(tmp, f"committee-protocol-{m['backend']}-{n}.txt"),
+                          [m[0], *table])
+        snaps = logs.read_telemetry_stream(stream)
+        check(len(snaps) >= 2, f"{stream} holds {len(snaps)} snapshots")
+        moved = (snaps[-1]["counters"].get("crypto.dispatch.cuda", 0)
+                 - snaps[0]["counters"].get("crypto.dispatch.cuda", 0))
+        check(moved > 0, "18b: crypto.dispatch.cuda did not move in the measured window")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"harness 18b on {card}: committee_scale --mode protocol --nodes {n} --rounds {rounds} "
+          f"--profile --telemetry (cuda-batched, HOTSTUFF_NET=native): {m['ms']} ms/round "
+          f"({m['rps']} rounds/s), transport={m['transport']}, {len(table) - 2} stages in the "
+          f"table, crypto.dispatch.cuda +{moved} over the {len(snaps)} snapshots; child {secs:.1f} s")
+    return float(m["ms"]), moved
+
+
+def harness_digest(card: str) -> tuple[dict, list[str]]:
+    """18c: ``digest_bench`` on its default grid in this process, with the
+    launches counted, then from its command line for the recommendation.
+    Returns (the in-process launches, the command line's lines)."""
+    tmp = tempfile.mkdtemp(prefix="phase18c-")
+    try:
+        buf = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            digest_bench.main(["--output", tmp])
+        launches = launch_counts()
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"  | {line}")
+        grid = [line for line in lines if line.startswith("digest k=")]
+        check(len(grid) == len(DIGEST_DRAINS) * len(DIGEST_SIZES) and all(
+            "backend=cuda:" in line for line in grid), f"digest_bench printed {grid}")
+        check(lines[-1].startswith("RECOMMEND "), "digest_bench printed no recommendation")
+        result_file_holds(os.path.join(tmp, "digest-bench-cuda.txt"), lines)
+        want = {**{k: 0 for k in launches}, "sha512": 7 * len(grid)}
+        check(launches == want, f"18c launched {launches}, expected {want}")
+        print(f"harness 18c on {card}: digest_bench in this process: sha512 launched "
+              f"{launches['sha512']} times for {len(grid)} drains, every digest = hashlib")
+        cli, secs = run_script("digest_bench", [], harness_env())
+        check(cli[-1].startswith("RECOMMEND ")
+              and sum(line.startswith("digest k=") for line in cli) == len(grid),
+              "digest_bench's command line printed no grid and recommendation")
+        print(f"harness 18c on {card}: digest_bench from its command line: {cli[-1]}; "
+              f"child {secs:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, cli
+
+
+def harness_superbatch(card: str, device, imad_per_s: float) -> tuple[dict, dict, list[str]]:
+    """18d: ``superbatch_bench`` with its defaults under ``cuda`` in this
+    process. Returns (its launches, the kernels' rows at the widths no
+    earlier phase held, its lines)."""
+    real = CudaBackend.verify_batch
+    widths = {}
+
+    def recording(self, msgs, pubs, sigs):
+        real(self, msgs, pubs, sigs)
+        n = len(msgs)
+        widths.setdefault((ov._pad_to_pow2(n), ov._pad_to_pow2(n + 1)),
+                          (list(msgs), list(pubs), list(sigs)))
+
+    saved_backend, saved_env = crypto._BACKEND, os.environ.get("HOTSTUFF_CRYPTO_BACKEND")
+    os.environ.pop("HOTSTUFF_CRYPTO_BACKEND", None)  # the script's default: cuda
+    CudaBackend.verify_batch = recording
+    try:
+        reset_launches()
+        t = time.perf_counter()
+        lines = superbatch_bench.main([])
+        secs = time.perf_counter() - t
+        launches = launch_counts()
+        inner = crypto.get_backend()
+    finally:
+        CudaBackend.verify_batch = real
+        crypto._BACKEND = saved_backend
+        if saved_env is not None:
+            os.environ["HOTSTUFF_CRYPTO_BACKEND"] = saved_env
+    check(isinstance(inner, CudaBackend) and lines[0].endswith("inner=cuda"),
+          f"superbatch_bench ran on {lines[0]!r}")
+    fused = [SUPERBATCH_FUSION.search(line) for line in lines]
+    fused = [m for m in fused if m]
+    check(len(fused) == 1 and sum(line.startswith("lone-QC ") for line in lines) == 2
+          and sum(line.startswith("contended ") for line in lines) == 2,
+          f"superbatch_bench printed {lines}")
+    requests, calls = int(fused[0]["requests"]), int(fused[0]["calls"])
+    # Each backend's lone QC 31 times; the plain backend's QCs twice.
+    qcs, lone = 24, 31
+    check(requests == lone + 2 * qcs, f"the wrapper took {requests} requests")
+    verifies = lone + 2 * qcs + calls
+    want = {k: c * verifies for k, c in WARM_QC_ALL.items() if k != "decompress"}
+    check({k: launches[k] for k in want} == want and launches["decompress"] >= verifies,
+          f"18d launched {launches} for {verifies} CudaBackend calls")
+    print(f"harness 18d on {card}: superbatch_bench (defaults, inner cuda) in this process in "
+          f"{secs:.1f} s (its pure-Python signing included): fusion {requests} requests in "
+          f"{calls} inner calls; launches "
+          + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()) if v))
+    return launches, harness_widths(widths, inner, device, imad_per_s, "18d"), lines
+
+
+def harness_local(card: str, config1_tps: float) -> tuple[dict, dict]:
+    """18e: ``run_local`` at BASELINE config 1 under ``cuda``, as four node
+    and four client processes. Returns (the SUMMARY's figures, each node
+    stream's ``crypto.dispatch.cuda``)."""
+    nodes, rate, duration, base = HARNESS_LOCAL
+    tmp = tempfile.mkdtemp(prefix="phase18e-")
+    work = os.path.join(tmp, "bench")
+    try:
+        lines, secs = run_script("run_local", [
+            "--nodes", str(nodes), "--rate", str(rate), "--duration", str(duration),
+            "--telemetry", "--base-port", str(base), "--crypto-backend", "cuda",
+            "--work-dir", work], harness_env())
+        summary = {}
+        for line in lines:
+            m = SUMMARY_FIGURE.fullmatch(line)
+            if m:  # the logs' SUMMARY comes first, the telemetry's after it
+                summary.setdefault(m["what"], float(m["value"].replace(",", "")))
+        for what in ("Consensus TPS", "Consensus latency", "End-to-end TPS",
+                     "End-to-end latency"):
+            check(what in summary, f"run_local's SUMMARY holds no {what}")
+        check(summary["Consensus TPS"] > 0, "18e committed nothing")
+        dispatched = {}
+        for path in sorted(glob.glob(os.path.join(work, "logs", "telemetry-*.jsonl"))):
+            snaps = logs.read_telemetry_stream(path)
+            dispatched[os.path.basename(path)] = (
+                snaps[-1]["counters"].get("crypto.dispatch.cuda", 0) if snaps else 0)
+        check(len(dispatched) == nodes and all(dispatched.values()),
+              f"18e: crypto.dispatch.cuda by node stream {dispatched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"harness 18e on {card}: run_local --nodes {nodes} --rate {rate} --duration {duration} "
+          f"--telemetry --crypto-backend cuda (BASELINE config 1, separate processes): consensus "
+          f"{summary['Consensus TPS']:.0f} tx/s, latency {summary['Consensus latency']:.0f} ms; "
+          f"end-to-end {summary['End-to-end TPS']:.0f} tx/s, latency "
+          f"{summary['End-to-end latency']:.0f} ms; 10c in this process {config1_tps:.1f} tx/s; "
+          f"crypto.dispatch.cuda by node {sorted(dispatched.values())}; run {secs:.1f} s")
+    return summary, dispatched
+
+
+def harness_phase(card: str, device, imad_per_s: float, config1_tps: float) -> dict:
+    """Phase 18: the port's copies of the reference's benchmark scripts, a-e."""
+    t = time.perf_counter()
+    crypto_launches, crypto_rows = harness_crypto(card, device, imad_per_s)
+    protocol_ms, protocol_dispatched = harness_protocol(card)
+    digest_launches, _ = harness_digest(card)
+    superbatch_launches, superbatch_rows, _ = harness_superbatch(card, device, imad_per_s)
+    _, local_dispatched = harness_local(card, config1_tps)
+    print(f"harness: phase 18 in {time.perf_counter() - t:.1f} s")
+    return {"crypto": crypto_launches, "digest": digest_launches,
+            "superbatch": superbatch_launches, "crypto_rows": crypto_rows,
+            "superbatch_rows": superbatch_rows,
+            "protocol_ms": protocol_ms, "protocol_dispatched": protocol_dispatched,
+            "local_dispatched": sum(local_dispatched.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4389,6 +4778,10 @@ def main() -> int:
           f"{phase17_s:.1f} s; launches counted in the groups, 17a "
           f"{groups['17a']['launches']}, 17b {groups['17b']['launches']}")
 
+    # 18. the measurement harness: the port's copies of the reference's
+    # benchmark scripts, run through their command lines
+    harness = harness_phase(card, device, imad_per_s, sha_row["config1_tx_per_s"])
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict", "verdict_tree"):
@@ -4413,7 +4806,12 @@ def main() -> int:
             **{f"launches_native_{part}": native[part][name] for part in native},
             "launches_groups_n100": groups["17a"]["launches"][name],
             "launches_groups_n1000": groups["17b"]["launches"][name],
+            **{f"launches_harness_{part}": harness[part][name]
+               for part in ("crypto", "digest", "superbatch")},
         }
+        if name == "verdict":
+            entry["harness_dispatch_cuda"] = {"protocol": harness["protocol_dispatched"],
+                                              "local": harness["local_dispatched"]}
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
             entry["unsharded_ms_per_qc"] = sharded["unsharded"]
@@ -4421,7 +4819,9 @@ def main() -> int:
                 ("fused", fused_rows, name), ("widest", wide_rows, name),
                 ("committee", committee_rows, name), ("config1", config1_rows, name),
                 ("conveyor", conveyor_rows, name), ("rejoin", rejoin_rows, name),
-                ("bench", bench_rows, name), ("bench_uncached", bench_rows, f"{name}_uncached")):
+                ("bench", bench_rows, name), ("bench_uncached", bench_rows, f"{name}_uncached"),
+                ("harness_crypto", harness["crypto_rows"], name),
+                ("harness_superbatch", harness["superbatch_rows"], name)):
             row_x = extra.get(row_name)
             if row_x is not None:
                 width = (f"{prefix} flush" if prefix in ("fused", "widest")
@@ -4448,6 +4848,8 @@ def main() -> int:
         **{f"launches_native_{part}": native[part]["sha512"] for part in native},
         "launches_groups_n100": groups["17a"]["launches"]["sha512"],
         "launches_groups_n1000": groups["17b"]["launches"]["sha512"],
+        **{f"launches_harness_{part}": harness[part]["sha512"]
+           for part in ("crypto", "digest", "superbatch")},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

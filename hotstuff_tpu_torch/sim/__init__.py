@@ -5,8 +5,10 @@ consensus core, faultline and telemetry. Its contract is the reference's:
 every handler runs to completion without suspending, so verification must
 be inline. The port's crypto bridge sends every verification to its worker
 pool when the backend's name holds ``cuda`` (as the reference's does for
-``tpu``), so under the port's default backend a run raises
-``SimSuspended``, as the reference's does under ``tpu``. The caller runs the
+``tpu``), so under the port's default backend a run fails before anything
+is verified: the bridge's ``asyncio.get_running_loop()`` finds no loop
+inside the sim's handlers and raises ``RuntimeError("no running event
+loop")``, as the reference's does under ``tpu``. The caller runs the
 sim plane under the ``cpu`` backend; ``run_sim`` and ``SimWorld`` never
 switch it themselves. The plane launches no kernel.
 

@@ -35,6 +35,7 @@ from hotstuff_tpu_torch import crypto
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
 from hotstuff_tpu_torch.ops import sha512, verify
 from hotstuff_tpu_torch.parallel import make_mesh
+from hotstuff_tpu_torch.benchmark import committee_scale, digest_bench, superbatch_bench
 raised = {}
 if not torch.cuda.is_available():
     for what, call in [
@@ -47,6 +48,9 @@ if not torch.cuda.is_available():
         ("make_mesh", make_mesh),
         ("bench_device_cached", lambda: bench_torch.bench_device_cached([b"m"], [b"k" * 32], [b"s" * 64])),
         ("bench_device", lambda: bench_torch.bench_device([b"m"], [b"k" * 32], [b"s" * 64])),
+        ("run_crypto_rounds", lambda: committee_scale.run_crypto_rounds(4, 1, False)),
+        ("digest_bench.bench", lambda: digest_bench.bench(1, 8)),
+        ("superbatch_bench.main", lambda: superbatch_bench.main([])),
     ]:
         try:
             call()
@@ -92,10 +96,14 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "faultline.runtime", "faultline.checker", "faultline.byzantine",
                  "faultline.harness", "parallel.engine_groups", "sim", "sim.clock",
                  "sim.machine", "sim.world", "sim.shrink", "sim.twins", "sim.dataplane",
-                 "sim.statesync", "sim.streams"):
+                 "sim.statesync", "sim.streams", "benchmark", "benchmark.hostinfo",
+                 "benchmark.logs", "benchmark.trace_assemble", "benchmark.profile_assemble",
+                 "benchmark.watchtower", "benchmark.committee_scale", "benchmark.digest_bench",
+                 "benchmark.superbatch_bench", "benchmark.local", "benchmark.run_local"):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
+        assert len(result["raised"]) == 12
         for what, message in result["raised"].items():
             assert message is not None and "CUDA" in message, what
 
