@@ -23,7 +23,9 @@ unguarded (any failure ends the run with a non-zero exit):
    written over padding lanes, the verdict also on a rejected point and on
    an ``ok`` with one False; the root alone (``sqrt_pow``, off the path);
    the full MSMs against the plain ``curve.msm_signed``/``curve.msm`` by
-   canonical affine encoding (their additions run in another order). Each
+   canonical affine encoding (their additions run in another order; only
+   here: every later width holds the kernels limb for limb against their
+   plain versions, without the slow plain curve MSM). Each
    kernel is timed at
    each of its main-path shapes by CUDA events and by the profiler's device
    time (``utils/kernel_times.kernel_ms``: the profiler's figure is taken
@@ -296,16 +298,17 @@ unguarded (any failure ends the run with a non-zero exit):
    ``stale_vote_flood``), decompress, K2 signed, K3 and the verdict
    launched, K4 and the root alone not, and the counter moved by exactly
    the verdict's launches:
-   a. ``crash.json``, ``partition.json`` and ``delay-reorder.json`` at
-      N = 4, and ``rejoin.json`` at retention 16 with the frontier
-      availability audit; each run's trace and snapshot records streamed
-      to a file;
+   a. ``rejoin.json`` at N = 4 and retention 16 with the frontier
+      availability audit, its trace and snapshot records streamed to a
+      file (phase 19d runs the classes of ``crash.json``,
+      ``partition.json`` and ``delay-reorder.json``, a crash, a partition
+      and delayed, duplicated and reordered links, at N = 20 on both
+      planes, and 16d runs ``partition.json`` itself natively);
    b. ``storm-n20.json`` at N = 20 (a crash, a partition, lossy links, a
       silent leader and a stale-vote flooder);
    c. an 8 s scenario with no events at N = 4, its stream fed to the port's
       ``Watchtower`` one line at a time: no alert may be raised, and some
-      round must be scored; then a's crash run, whose alerts and
-      scoreboard are printed;
+      round must be scored; then b's storm, whose alerts are printed;
    d. phase 11's data plane (ports 11100-11135) with
       ``HOTSTUFF_FAULTLINE`` naming a scenario in which node 2 runs
       ``batch_withhold`` from 2 s to 8 s of 10 s. The four nodes run in
@@ -348,8 +351,9 @@ unguarded (any failure ends the run with a non-zero exit):
       injection counts and recovery seconds after the heal.
 17. engine groups and the sim plane, run right after phase 2 (each group is
    a spawned interpreter, started without this script as its main module);
-   this process launches no kernel in it (its counts are read before and
-   after, and must be unchanged), and after phase 16 it prints 17a's and
+   this process launches no kernel in 17a-b (its counts are read before and
+   after, and must be unchanged), 17c's children run beside phases 3-5 and
+   are waited for before phase 6, and after phase 16 it prints 17a's and
    17b's ms per round beside phase 9's and 16a-b's:
    a. ``EngineGroupRuntime`` (``parallel/engine_groups.py``): BASELINE config
       2's shape, N = 100 (quorum 67, timeout 30 s) in 4 worker processes
@@ -379,16 +383,22 @@ unguarded (any failure ends the run with a non-zero exit):
       (its default is 20; the one cut, as 16b's), with the seconds to the
       first commit and the open descriptors summed over the groups at the
       window's end;
-   c. the sim plane (``hotstuff_tpu_torch/sim``) under the ``cpu`` backend,
-      set by the phase (the sim verifies inline; under a backend named
-      ``cuda`` it cannot run), as the reference's ``benchmark/sim_sweep.py
-      --seeds 0:300 --twins 24 --inject-wedge --gate`` runs it: chaos seeds
-      0-299 and 24 enumerated twins scenarios at N = 4, each safe and
-      recovered under the checker; the injected wedge (two permanent
-      crashes at N = 4), whose liveness violation is shrunk to a reproducer
-      that replays to it; a fault-free run rendered by ``sim/streams.py``
-      and scored by the watchtower with no alert. It prints seeds a minute
-      and ``crypto.verify_memo.hits``.
+   c. the sim plane (``hotstuff_tpu_torch/sim``) through the port's scripts,
+      each from its command line as phase 18 runs them, the two started
+      together after 17b and waited for after phase 5 (each sets the
+      ``cpu`` backend for its own process: the sim verifies inline, and
+      under a backend named ``cuda`` it cannot run): ``sim_sweep --seeds
+      0:300 --twins 24 --inject-wedge --gate --artifacts <tmp> --out <tmp>``,
+      chaos seeds 0-299 and 24 enumerated twins scenarios at N = 4, each
+      safe and recovered under the checker, and the injected wedge (two
+      permanent crashes at N = 4) shrunk to a reproducer of its two crashes
+      that replays in this process to the liveness violation; then
+      ``detector_sweep --seeds 0:60 --labeled-seeds 10 --controls 10
+      --config preset:tuned-n4 --gate --out <tmp>``, the watchtower's tuned
+      preset scored on labelled sim runs rendered as telemetry streams:
+      recall 1.0 on the pinned incidents, no alert on a fault-free control,
+      and the preset's fingerprint. It prints seeds a minute from the
+      summary.
 18. the measurement harness: the port's copies of the reference's benchmark
    scripts (``hotstuff_tpu_torch/benchmark/``), each child started as
    ``python -m hotstuff_tpu_torch.benchmark.<name>`` in a session of its own
@@ -424,12 +434,58 @@ unguarded (any failure ends the run with a non-zero exit):
       ``CudaBackend`` call (31 lone and 48 contended on the plain backend,
       and the wrapper's inner calls), decompress at least as many, K4
       never; the kernels held at the widths no earlier phase held;
-   e. ``run_local --nodes 4 --rate 1000 --duration 20 --telemetry
+   e. ``run_local --nodes 4 --rate 1000 --duration 5 --telemetry
       --base-port 14300 --crypto-backend cuda`` (BASELINE config 1, four
-      node and four client processes): exit 0 (``LogParser`` rejects a
-      panic), the SUMMARY's TPS and latencies parse, consensus TPS above
+      node and four client processes; 5 s of the script's default 20, a
+      cut: 10c and 16c run config 1 as well): exit 0 (``LogParser`` rejects
+      a panic), the SUMMARY's TPS and latencies parse, consensus TPS above
       0, and each node's stream's ``crypto.dispatch.cuda`` above 0. Its
       committed tx/s is printed beside 10c's.
+19. the data-plane and robustness harness: the port's copies of the
+   reference's ``dataplane_sweep``, ``fleet_bench``, ``soak`` and
+   ``fault_matrix``, each from its command line as phase 18 runs them, under
+   the card's default backend unless the line names one; a, b and c run
+   alone, d's command line (one N = 20 committee at a time) beside d's run
+   in this process:
+   a. ``dataplane_sweep --nodes 4 --workers 2 --rates 20000 --duration 6
+      --dtrace --base-port 14400`` (phase 11's Conveyor setting as eight
+      node and four client processes; 6 s, a cut: the script's default is
+      20 s): its point has no ``error``, e2e TPS
+      above 0 and a shed count; its lifeline report has no ``error`` and
+      every batch closes the seven edges or names its open edge; both
+      artifacts carry the reference's names; every node stream's
+      ``crypto.dispatch.cuda`` is above 0;
+   b. ``fleet_bench --nodes 4 --workers 2 --rate 20000 --fleet 256
+      --bundle-txs 8 --duration 6 --base-port 14800`` (the script
+      docstring's first example at 6 s of its 30, a cut): the artifact holds
+      e2e TPS, p99 and p99.9, sheds, churns and the ingress watermark; every
+      node stream's ``crypto.dispatch.cuda`` is above 0;
+   c. ``soak --nodes 4 --rate 500 --duration 30 --chaos-seed 7
+      --watch-config preset:tuned-n4 --base-port 15200``, alone: the
+      checker finds the run safe and the log parse no panic; the checker's
+      liveness verdict (with the post-heal commits) and the SLO engine's
+      (with every breached SLO) are printed and not required: after this
+      schedule's last heal both packages' committees sometimes stall for
+      good, on any host (ROADMAP §3 F11), and chaos seed 7's degraded share
+      of windows sits at the engine's 0.34 allowance. The script's verdict
+      line and exit code (0 PASS, 1 FAIL) must be the conjunction of the
+      three judges; every live alert carries the tuned preset's
+      fingerprint, and the node streams' ``crypto.dispatch.cuda`` moved.
+      19d's fault matrix is where recovery is required;
+   d. ``HOTSTUFF_CRYPTO_BACKEND=cuda-batched fault_matrix --nodes 20
+      --duration 8 --base-port 15400`` (the committee of the reference's
+      ``results/fault-matrix-n20.json``; 8 s of its 12, a cut): crash-f6, a
+      minority partition and delay+dup+reorder on both transport planes,
+      each plane a child in a session of its own, every verdict safe and
+      recovered. Beside it ``run_plane`` of the same in this process on its
+      (asyncio) plane from port 15500 with 4 s scenarios, every verdict
+      safe and recovered, the counts zeroed before and read
+      after under a lock each ``CudaBackend`` call holds: K2 and K3 twice a
+      call, the verdict once, the decompression once a call plus once a key
+      cache insert, K4, the root alone, ``verdict_tree`` and SHA-512 never.
+      The cached kernels are held against their plain versions at each
+      width it ran that no earlier phase held, once the command line's
+      child has ended.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -455,8 +511,11 @@ and ``_faultline`` from phase 16's parts a-d; ``launches_groups_n100`` and
 ``launches_harness_crypto``, ``_digest`` and ``_superbatch`` from phase
 18a, c and d in this process, the ``harness_crypto_*`` and
 ``harness_superbatch_*`` keys at the widest width that 18a and 18d held
-first, and on the verdict's row ``harness_dispatch_cuda``, the
-``crypto.dispatch.cuda`` that 18b's and 18e's children streamed)
+first; ``launches_harness_fault_matrix`` from 19d's ``run_plane`` in this
+process and the ``harness_fault_matrix_*`` keys at the widest width it held
+first; and on the verdict's row ``harness_dispatch_cuda``, the
+``crypto.dispatch.cuda`` that 18b's, 18e's, 19a's, 19b's and 19c's node
+processes streamed)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -465,6 +524,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import atexit
 import contextlib
 import contextvars
 import functools
@@ -512,7 +572,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import bench_torch  # noqa: E402
 from hotstuff_tpu_torch import crypto, faultline, network, telemetry  # noqa: E402
 from hotstuff_tpu_torch.benchmark import committee_scale, digest_bench, logs  # noqa: E402
-from hotstuff_tpu_torch.benchmark import superbatch_bench  # noqa: E402
+from hotstuff_tpu_torch.benchmark import fault_matrix, superbatch_bench  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
@@ -559,10 +619,7 @@ from hotstuff_tpu_torch.ops import sha512 as sha  # noqa: E402
 from hotstuff_tpu_torch.ops import verify as ov  # noqa: E402
 from hotstuff_tpu_torch.parallel import mesh as pm  # noqa: E402
 from hotstuff_tpu_torch.parallel.engine_groups import EngineGroupRuntime  # noqa: E402
-from hotstuff_tpu_torch.sim import SimWorld  # noqa: E402
-from hotstuff_tpu_torch.sim.shrink import shrink, sim_failure_probe, write_reproducer  # noqa: E402
-from hotstuff_tpu_torch.sim.streams import StreamRecorder, replay_watchtower  # noqa: E402
-from hotstuff_tpu_torch.sim.twins import enumerate_twins  # noqa: E402
+from hotstuff_tpu_torch.sim.shrink import sim_failure_probe  # noqa: E402
 from hotstuff_tpu_torch.store import LogEngine, Store  # noqa: E402
 from hotstuff_tpu_torch.telemetry import profiler as pyprof  # noqa: E402
 from hotstuff_tpu_torch.telemetry.validate import validate_stream  # noqa: E402
@@ -600,7 +657,7 @@ WARM_QC_ALL = {**WARM_QC_LAUNCHES, "sha512": 0}
 # Phase 7's ceiling per warm QC: aten ops the profiler sees, and device ops.
 MAX_ATEN_OPS, MAX_DEVICE_OPS = 400, 60
 # Every cached-path width (mf, mc) whose kernels were held against their
-# plain versions in this run; phase 18 holds only the widths not in it.
+# plain versions in this run; phases 18 and 19 hold only the widths not in it.
 CHECKED_WIDTHS: set[tuple[int, int]] = set()
 
 # The bound. These kernels are bound by int32 multiply-adds (IMAD): a field
@@ -736,8 +793,8 @@ MESH_WIDTHS = (1, 2, 3, 4, 8)
 # Phase 15: the reference's committed fault scenarios (read as data, by
 # path) through the port's faultline on committees under cuda-batched, at
 # the harness's default timeout of 1 s (hotstuff_tpu/faultline/
-# harness.py:76). a: four scenarios at N = 4, rejoin.json at retention 16
-# (as tests/test_statesync_sim.py runs it); b: storm-n20.json at N = 20,
+# harness.py:76). a: rejoin.json at N = 4 and retention 16 (as
+# tests/test_statesync_sim.py runs it); b: storm-n20.json at N = 20,
 # committee_scale's default size; c: an 8 s scenario with no events at
 # N = 4 streamed to the watchtower; d: phase 11's data plane with node 2
 # withholding its acks from 2 s to 8 s of a 10 s scenario. Ports
@@ -746,13 +803,12 @@ MESH_WIDTHS = (1, 2, 3, 4, 8)
 # 10900-10931).
 SCENARIO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "scenarios")
 FAULT_RUNS = (  # (scenario file, N, base port, retention rounds)
-    ("crash.json", 4, 11000, 0), ("partition.json", 4, 11010, 0),
-    ("delay-reorder.json", 4, 11020, 0), ("rejoin.json", 4, 11030, 16),
+    ("rejoin.json", 4, 11030, 16),
 )
 STORM_RUN = ("storm-n20.json", 20, 11050, 0)
 QUIET_PORTS, WITHHOLD_PORTS, FAULT_TIMEOUT_MS = 11040, 11100, 1_000
 # Scenarios whose faults cut links: each must count dropped frames.
-DROPPING = ("partition.json", "delay-reorder.json", "storm-n20.json")
+DROPPING = ("partition.json", "storm-n20.json")
 FAULT_KERNELS = ("decompress", "msm_partials_signed", "msm_combine", "verdict")
 # Phase 16: the native plane, in a child process started with these
 # variables (both read at import: the transport switch by the network
@@ -777,30 +833,18 @@ NATIVE_RESULT = "phase 16 result: "
 # protocol mode as ``committee_scale.py --mode protocol --nodes 1000
 # --groups 8`` runs it, 5 timed rounds where its default is 20 (the one
 # cut, as 16b). Ports 13000-13099 and 13100-14099: below the H100 host's
-# ephemeral range, clear of phases 9-16. c: the sim plane, under the cpu
-# backend, as the reference's ``benchmark/sim_sweep.py --seeds 0:300
-# --twins 24 --inject-wedge --gate`` runs it.
+# ephemeral range, clear of phases 9-16. c: the sim plane through the
+# port's ``sim_sweep --seeds 0:300 --twins 24 --inject-wedge --gate`` and
+# ``detector_sweep --config preset:tuned-n4 --gate`` (each sets the cpu
+# backend for itself).
 GROUP_ENV = {**NATIVE_ENV, "HOTSTUFF_CRYPTO_BACKEND": "cuda-batched"}
 GROUPS_N100 = (100, 4, 13000, 10)  # N, groups, base port, timed rounds
 GROUPS_N1000 = (1000, 8, 13100, 5)
 GROUP_BOOT_S, GROUP_ROUNDS_S = 90.0, 120.0
-SIM_SEEDS, SIM_TWINS, SIM_DURATION_S = 300, 24, 8.0
-SIM_WORLD = dict(timeout_delay=1_000, leader_elector="", link_delay_ms=(25.0, 75.0))
-# benchmark/sim_sweep.py's injected wedge: two permanent crashes at N = 4
-# (below quorum for good) among noise; its liveness violation is expected.
-SIM_WEDGE = {
-    "name": "injected-wedge", "seed": 3, "duration_s": 8.0,
-    "events": [
-        {"kind": "link", "src": "?", "dst": "*", "at": 1.0, "until": 3.0, "drop": 0.2,
-         "delay_ms": [5.0, 40.0]},
-        {"kind": "partition", "at": 2.0, "until": 4.0},
-        {"kind": "crash", "node": 1, "at": 2.5},
-        {"kind": "byzantine", "node": 0, "behavior": "stale_vote_flood", "at": 3.0, "until": 5.0},
-        {"kind": "crash", "node": 2, "at": 3.5},
-        {"kind": "link", "src": "*", "dst": "?", "at": 4.0, "until": 5.5, "drop": 0.1,
-         "delay_ms": [1.0, 10.0]},
-    ],
-}
+SIM_SEEDS, SIM_TWINS = 300, 24
+# 17c's detector sweep: chaos seeds, single-fault seeds a class, controls.
+DETECTOR_SWEEP = (60, 10, 10)
+TUNED_N4 = "e9e99f16bffb"  # the tuned watchtower preset's fingerprint
 
 
 # Phase 18: the port's copies of the reference's benchmark scripts
@@ -817,8 +861,25 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HARNESS_CRYPTO = ((400, False), (1000, False), (1000, True))  # N, --tc-heavy
 HARNESS_ROUNDS = 20
 HARNESS_PROTOCOL = (100, 10, 14100)  # N, rounds, base port
-HARNESS_LOCAL = (4, 1000, 20, 14300)  # nodes, tx/s, seconds, base port
+HARNESS_LOCAL = (4, 1000, 5, 14300)  # nodes, tx/s, seconds, base port
 HARNESS_TIMEOUT_S = 300
+# Phase 19: the data-plane and robustness harness through its command lines.
+# a: ``dataplane_sweep`` at phase 11's Conveyor setting (4 nodes x 2 workers,
+# 20,000 tx/s) as separate node processes, with lifelines; b: ``fleet_bench``,
+# the first example of the reference's docstring; c: ``soak`` under chaos
+# seed 7 judged with the tuned watchtower preset; d: ``fault_matrix`` at
+# N = 20 on both transport planes, its 12 s cut to 8, beside its ``run_plane``
+# in this process with the launches counted. Ports 14400-14427 (a),
+# 14800-14827 (b), 15200-15211 (c), 15400-15491 (d's children) and
+# 15500-15591 (d here): below the H100 host's ephemeral range, clear of
+# phases 9-18.
+DATAPLANE_SWEEP = (4, 2, 20_000, 6, 14400)  # nodes, workers, tx/s, seconds, base port
+FLEET = (4, 2, 20_000, 256, 8, 6, 14800)  # nodes, workers, tx/s, fleet, bundle txs, s, port
+SOAK = (4, 500, 30, 7, 15200)  # nodes, tx/s, seconds, chaos seed, base port
+SOAK_ALLOWED = 0.34  # the script's default --allow-violation-fraction
+# N, seconds of the command line's run, base port (children), seconds and base
+# port of the run here
+FAULT_MATRIX = (20, 8.0, 15400, 4.0, 15500)
 COMMITTEE_LINE = re.compile(
     r"committee=(?P<n>\d+) \(f=(?P<f>\d+), QC size (?P<q>\d+)\) mode=(?P<mode>\w+)"
     r"(?P<tc> tc-heavy)?(?: groups=\d+)? backend=(?P<backend>\S+) transport=(?P<transport>\w+): "
@@ -1005,11 +1066,14 @@ def qc_batch(qc: QC):
     return [digest] * len(qc.votes), [pk.data for pk, _ in qc.votes], [sig.data for _, sig in qc.votes]
 
 
-def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = True):
+def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = True,
+                  curve_msm: bool = False):
     """Each kernel against its plain version on the inputs that verifying
     ``batch`` (msgs, pubs, sigs) gives it, timed, with its bound. The
     cached path's kernels always; with ``uncached``, also the uncached
-    path's (K1 over every lane, K4 + K3, its verdict) and the root alone."""
+    path's (K1 over every lane, K4 + K3, its verdict) and the root alone;
+    with ``curve_msm`` (phase 5), also each full MSM against the plain
+    curve MSM."""
     msgs, pubs, sigs = batch
     packed, mf, mc = ov.prepare_batch_cached(msgs, pubs, sigs, backend._cache)
     packed_d = torch.from_numpy(packed).to(device)
@@ -1030,12 +1094,14 @@ def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = Tr
     torch.cuda.synchronize()
 
     rows, notes = {}, []
+    t_checks, spent = time.perf_counter(), {"plain": 0.0, "whole": 0.0}
 
-    def timed_plain(fn):
+    def timed_plain(fn, part: str = "plain"):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        spent[part] += time.perf_counter() - t
         return out, (time.perf_counter() - t) * 1e3
 
     # K1, the decompression: at the fresh R lanes of the cached batch and at
@@ -1093,10 +1159,11 @@ def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = Tr
         out_p, comb_plain = timed_plain(lambda: mk.msm_combine_plain(part_k))
         err_c = max_abs_err(out_k, out_p)
         check(err_c == 0, f"combine ({w} windows) differs from plain by {err_c}")
-        whole = cv.msm_signed if signed else cv.msm
-        ref_pt = whole(pts, digits)
-        check(cv.to_affine_bytes(out_k) == cv.to_affine_bytes(ref_pt),
-              f"{kind} MSM ({w} windows, m={m}) != plain curve MSM")
+        if curve_msm:
+            whole = cv.msm_signed if signed else cv.msm
+            ref_pt, _ = timed_plain(lambda: whole(pts, digits), "whole")
+            check(cv.to_affine_bytes(out_k) == cv.to_affine_bytes(ref_pt),
+                  f"{kind} MSM ({w} windows, m={m}) != plain curve MSM")
         table = 9 if signed else 16
         pname = "msm_partials_signed" if signed else "msm_partials"
         p_ms, p_ev, p_pr = kernel_ms(lambda: mk.msm_partials(pts, digits, signed=signed), 10,
@@ -1168,6 +1235,9 @@ def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = Tr
             rows["verdict"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                                    shape=f"ok [{m}], a, b [4, 20]")
     CHECKED_WIDTHS.add((mf, mc))
+    notes.append(f"these checks {time.perf_counter() - t_checks:.1f} s: plain versions "
+                 f"{spent['plain']:.1f} s" + (f", plain curve MSMs {spent['whole']:.1f} s"
+                                             if curve_msm else ""))
     return rows, notes, (mf, mc, m_u)
 
 
@@ -3750,7 +3820,7 @@ def faultline_phase(seed: int, card: str, device) -> dict:
     total = dict.fromkeys(launch_counts(), 0)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_faultline_")
     try:
-        # a, b: the scenarios, the crash run streamed for part c.
+        # a, b: the scenarios, each run streamed.
         streams = {}
         for name, n, base, retention in FAULT_RUNS + (STORM_RUN,):
             scenario = faultline.Scenario.load(os.path.join(SCENARIO_DIR, name))
@@ -3775,7 +3845,7 @@ def faultline_phase(seed: int, card: str, device) -> dict:
                   + f"; crypto.dispatch.cuda +{run['dispatched']} = verdict launches; "
                   f"run {run['wall_s']:.1f} s")
 
-        # c: the watchtower on a fault-free run, then on a's crash run.
+        # c: the watchtower on a fault-free run, then on b's storm.
         quiet = faultline.Scenario(name="quiet-n4", seed=seed + 1500, duration_s=8.0, events=[])
         quiet_stream = os.path.join(tmp, "telemetry-quiet-n4.jsonl")
         run = fault_run("quiet", quiet, 4, QUIET_PORTS, 0, gate, quiet_stream)
@@ -3793,13 +3863,11 @@ def faultline_phase(seed: int, card: str, device) -> dict:
               f"{board['rounds']} rounds scored, frontier {board['frontier']}; scores "
               + ", ".join(f"{p[:6]} {s['score']}" for p, s in sorted(board['peers'].items()))
               + f"; run {run['wall_s']:.1f} s")
-        watch = watch_stream(streams["crash.json"])
+        watch = watch_stream(streams["storm-n20.json"])
         board = watch.scoreboard()
-        print(f"faultline on {card}: watchtower on the crash run: {len(watch.alerts)} alerts "
+        print(f"faultline on {card}: watchtower on the storm-n20 run: {len(watch.alerts)} alerts "
               f"{[(a['detector'], a['accused'], a['confidence']) for a in watch.alerts]}; "
-              f"{board['rounds']} rounds scored, frontier {board['frontier']}; scores "
-              + ", ".join(f"{p[:6]} {s['score']} (participation {s['participation']})"
-                          for p, s in sorted(board['peers'].items())))
+              f"{board['rounds']} rounds scored, frontier {board['frontier']}")
     finally:
         del batched.inner.verify_batch  # the class's method again
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4171,129 +4239,153 @@ def groups_phase(card: str) -> dict:
     return out
 
 
-def sim_phase(card: str) -> dict:
-    """Phase 17c: the sim plane on the card's host, as the reference's
-    ``benchmark/sim_sweep.py --seeds 0:300 --twins 24 --inject-wedge
-    --gate`` runs it, with the port's modules: chaos seeds at N = 4 and
-    twins scenarios, each gated by the checker; the injected wedge, shrunk
-    to a reproducer that replays to the same violation; and a fault-free
-    run rendered as telemetry streams and scored by the watchtower (no
-    alert). The sim verifies inline, so it runs under the cpu backend, set
-    here; the backend before it is put back after it."""
-    saved_backend = crypto._BACKEND
-    crypto.set_backend("cpu")
-    quiet = {name: logging.getLogger(name).level for name in ("consensus", "network", "faultline",
-                                                              "sim")}
-    for name in quiet:
-        logging.getLogger(name).setLevel(logging.ERROR)
-    telemetry.reset_for_tests()
-    telemetry.enable()
-    out = {}
+def sim_start() -> dict:
+    """Phase 17c's two children, started together (each a single-threaded
+    simulation on the host): ``sim_sweep --seeds 0:300 --twins 24
+    --inject-wedge --gate`` and ``detector_sweep --config preset:tuned-n4
+    --gate``. ``sim_phase`` waits for them and checks what they wrote."""
+    seeds, labeled, controls = DETECTOR_SWEEP
+    tmp = tempfile.mkdtemp(prefix="phase17c-")
+    return {"tmp": tmp, "t": time.perf_counter(), "sim": start_script("sim_sweep", [
+        "--seeds", f"0:{SIM_SEEDS}", "--twins", str(SIM_TWINS), "--inject-wedge", "--gate",
+        "--artifacts", tmp, "--out", os.path.join(tmp, "sim.json")], harness_env()),
+        "sweep": start_script("detector_sweep", [
+            "--seeds", f"0:{seeds}", "--labeled-seeds", str(labeled), "--controls",
+            str(controls), "--config", "preset:tuned-n4", "--gate", "--out",
+            os.path.join(tmp, "sweep.json")], harness_env())}
+
+
+def sim_phase(card: str, children: dict) -> dict:
+    """Phase 17c: the sim plane on the card's host through the port's
+    scripts, each from its command line (each sets the ``cpu`` backend for
+    its process: the sim verifies inline and launches nothing). ``sim_sweep``:
+    every chaos seed and twins scenario safe and recovered under the
+    checker, the injected wedge shrunk to a reproducer of its two crashes
+    that replays here to the liveness violation; ``detector_sweep`` on a
+    labelled corpus: recall 1.0 on the pinned incidents, no alert on a
+    control, and the preset's fingerprint."""
+    seeds, labeled, controls = DETECTOR_SWEEP
+    tmp = children["tmp"]
+    joined = time.perf_counter() - children["t"]
     try:
-        t = time.perf_counter()
-        runs, events = 0, 0
-        for seed in range(SIM_SEEDS):
-            result = SimWorld(faultline.chaos_scenario(seed, duration_s=SIM_DURATION_S), 4,
-                              **SIM_WORLD).run()
-            v = result["verdict"]
-            check(v["safety"]["ok"] and v["liveness"]["recovered"],
-                  f"17c: chaos seed {seed} violated the checker: {v['safety']} {v['liveness']}")
-            runs, events = runs + 1, events + result["events"]
-        for scenario, twins in enumerate_twins(4, duration_s=SIM_DURATION_S, limit=SIM_TWINS):
-            result = SimWorld(scenario, 4, twins=twins, **SIM_WORLD).run()
-            v = result["verdict"]
-            check(v["safety"]["ok"] and v["liveness"]["recovered"],
-                  f"17c: {scenario.name} violated the checker: {v['safety']} {v['liveness']}")
-            runs, events = runs + 1, events + result["events"]
-        sweep_s = time.perf_counter() - t
-        out["per_min"] = runs / sweep_s * 60.0
-        # The injected wedge: a liveness violation, shrunk and replayed.
-        t = time.perf_counter()
-        wedge = faultline.Scenario.from_json(SIM_WEDGE)
-        probe = sim_failure_probe(4, **SIM_WORLD)
-        violation, _ = probe(wedge)
-        check(violation == "liveness", f"17c: the injected wedge gave {violation}")
-        res = shrink(wedge, probe)
-        crashes = [e for e in res.scenario.events if e["kind"] == "crash"]
-        check(res.violation == "liveness" and len(crashes) == 2,
-              f"17c: the wedge shrank to {res.scenario.events} ({res.violation})")
-        with tempfile.TemporaryDirectory() as tmp:
-            path = write_reproducer(tmp, res.scenario, 4, res.verdict, world=dict(SIM_WORLD),
-                                    steps=res.steps, tag="sim-shrunk")
-            with open(path) as f:
-                replay = faultline.Scenario.from_json(json.load(f)["scenario"])
-        check(probe(replay)[0] == "liveness", "17c: the reproducer did not replay the violation")
-        wedge_s = time.perf_counter() - t
-        # A fault-free run through sim/streams.py to the watchtower.
-        rec = StreamRecorder(interval_s=0.5)
-        SimWorld(faultline.Scenario(name="oracle-control-0", seed=0, duration_s=SIM_DURATION_S,
-                                    events=[]), 4, recorder=rec, **SIM_WORLD).run()
-        watch, alerts = replay_watchtower(rec)
-        lines = sum(len(v) for v in rec.render().values())
-        check(alerts == [], f"17c: the watchtower raised {alerts} on a fault-free run")
-        hits = telemetry.get_registry().snapshot()["counters"].get("crypto.verify_memo.hits", 0)
-        backend_name = type(crypto.get_backend()).__name__
+        _, secs = finish_script(children["sim"])
+        with open(os.path.join(tmp, "sim.json")) as f:
+            summary = json.load(f)
+        totals = summary["totals"]
+        check(summary["failures"] == [] and totals["ok"] == SIM_SEEDS + SIM_TWINS
+              and totals["twins_runs"] == SIM_TWINS, f"17c: sim_sweep's totals {totals}")
+        (wedge,) = summary["injected"]
+        check(wedge["violation"] == "liveness" and wedge["artifact"],
+              f"17c: the injected wedge gave {wedge}")
+        with open(wedge["artifact"]) as f:
+            repro = json.load(f)
+        crashes = [e for e in repro["scenario"]["events"] if e["kind"] == "crash"]
+        check(len(crashes) == 2, f"17c: the wedge shrank to {repro['scenario']['events']}")
+        world = {k: v for k, v in repro["world"].items() if k != "twins"}
+        saved_backend = crypto._BACKEND
+        crypto.set_backend("cpu")
+        try:
+            replayed = sim_failure_probe(repro["n"], **world)(
+                faultline.Scenario.from_json(repro["scenario"]))[0]
+        finally:
+            crypto.set_backend(saved_backend)
+            crypto.enable_verify_memo(False)
+        check(replayed == "liveness", f"17c: the reproducer replayed to {replayed}")
+
+        _, sweep_s = finish_script(children["sweep"])
+        with open(os.path.join(tmp, "sweep.json")) as f:
+            sweep = json.load(f)
+        gate = sweep["gate"]
+        check(gate["ok"] and gate["recall_pinned"] == 1.0 and gate["control_alerts"] == 0
+              and sweep["tuned"]["config_hash"] == TUNED_N4, f"17c: detector_sweep's gate {gate}")
     finally:
-        crypto.set_backend(saved_backend)
-        crypto.enable_verify_memo(False)
-        telemetry.reset_for_tests()
-        telemetry.disable()
-        decode_arena.arena()._metrics()  # told that telemetry is off
-        for name, level in quiet.items():
-            logging.getLogger(name).setLevel(level)
-    print(f"sim 17c on the host of {card}: backend cpu ({backend_name}, set by the phase: "
-          f"the sim verifies inline and launches nothing); {SIM_SEEDS} chaos seeds at N=4 "
-          f"({SIM_DURATION_S:g} virtual s, link delay 25-75 ms, timeout 1 s) and {SIM_TWINS} twins "
-          f"scenarios, every one safe and recovered under the checker: {runs} schedules, "
-          f"{events} events in {sweep_s:.1f} s = {out['per_min']:.0f} seeds a minute; "
-          f"crypto.verify_memo.hits {hits}")
-    print(f"sim 17c on the host of {card}: injected wedge {len(wedge.events)} -> "
-          f"{len(res.scenario.events)} events ({res.runs} probe runs, steps {res.steps}), the "
-          f"reproducer replays to the liveness violation; {wedge_s:.1f} s. Fault-free run: "
-          f"{lines} stream lines from sim/streams.py, watchtower alerts 0")
-    out["hits"] = hits
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sim 17c on the host of {card}: sim_sweep --seeds 0:{SIM_SEEDS} --twins {SIM_TWINS} "
+          f"--inject-wedge --gate (cpu, set by the script): {totals['runs']} schedules, "
+          f"{totals['events_simulated']} events in {totals['wall_s']} s = "
+          f"{totals['schedules_per_min']} seeds a minute, every chaos seed and twins scenario "
+          f"safe and recovered; the wedge shrank to {wedge['shrunk_events']} events "
+          f"({wedge['shrink_runs']} probe runs) and its reproducer replays here to the liveness "
+          f"violation; child {secs:.1f} s")
+    print(f"sim 17c on the host of {card}: detector_sweep --seeds 0:{seeds} --labeled-seeds "
+          f"{labeled} --controls {controls} --config preset:tuned-n4 --gate: "
+          f"{sweep['tuned']['schedules']} schedules, {sweep['tuned']['incidents']} incidents; "
+          f"tuned ({TUNED_N4}) recall_pinned {gate['recall_pinned']}, precision "
+          f"{gate['precision_vs_default'][0]} against the default's "
+          f"{gate['precision_vs_default'][1]}, control alerts {gate['control_alerts']}; "
+          f"{sweep['tuned']['timing']['schedules_per_min']} schedules a minute; child {sweep_s:.1f} s; "
+          f"both children beside phases 3-5, which took {joined:.1f} s; "
+          f"{time.perf_counter() - children['t']:.1f} s from their start to this line")
+    return {"per_min": totals["schedules_per_min"], "detector": gate}
 
 
 # -- phase 18: the measurement harness on the card -----------------------------
 
 
 def harness_env(**switches: str) -> dict:
-    """The environment of a phase 18 child: this process's, without any
+    """The environment of a phase 17c, 18 or 19 child: this process's, without any
     ``HOTSTUFF_*`` switch an earlier phase set, plus ``switches``."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("HOTSTUFF_")}
     env.update(switches)
     return env
 
 
-def run_script(module: str, args: list[str], env: dict) -> tuple[list[str], float]:
-    """``python -m hotstuff_tpu_torch.benchmark.<module> args`` as a user
-    types it, in a session of its own: its standard output printed and
-    returned with its seconds. Fails unless it exits 0 within
-    ``HARNESS_TIMEOUT_S``; every process it started is killed after it."""
-    cmd = [sys.executable, "-m", f"hotstuff_tpu_torch.benchmark.{module}", *args]
-    what = f"{module} {' '.join(args)}"
-    t = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env, cwd=REPO,
-                            start_new_session=True)
+def kill_session(proc: subprocess.Popen) -> None:
+    """``proc`` and every process it started, killed and reaped."""
     try:
-        out, _ = proc.communicate(timeout=HARNESS_TIMEOUT_S)
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    if proc.poll() is None:
+        proc.wait()
+
+
+# Every child ``start_script`` started; whatever is still running when this
+# process exits (a check failed while it ran) is killed with it.
+STARTED: list[subprocess.Popen] = []
+atexit.register(lambda: [kill_session(proc) for proc in STARTED])
+
+
+def start_script(module: str, args: list[str], env: dict) -> dict:
+    """``python -m hotstuff_tpu_torch.benchmark.<module> args`` as a user
+    types it, started in a session of its own with its standard output in
+    a temporary file; ``finish_script`` waits for it."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", f"hotstuff_tpu_torch.benchmark.{module}", *args],
+                            stdout=out, text=True, env=env, cwd=REPO, start_new_session=True)
+    STARTED.append(proc)
+    return {"proc": proc, "out": out, "what": f"{module} {' '.join(args)}",
+            "t": time.perf_counter()}
+
+
+def finish_script(child: dict, exit_codes: tuple[int, ...] = (0,)) -> tuple[list[str], float]:
+    """Waits for a ``start_script`` child: its standard output printed and
+    returned with its seconds. Fails unless it exits with one of
+    ``exit_codes`` within ``HARNESS_TIMEOUT_S`` of its start; every process
+    it started is killed after it."""
+    proc, what = child["proc"], child["what"]
+    try:
+        proc.wait(timeout=max(1.0, HARNESS_TIMEOUT_S - (time.perf_counter() - child["t"])))
+        timed_out = False
     except subprocess.TimeoutExpired:
-        out = None
+        timed_out = True
     finally:
-        try:
-            os.killpg(proc.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        if proc.poll() is None:
-            proc.wait()
-    secs = time.perf_counter() - t
-    check(out is not None, f"{what} ran past {HARNESS_TIMEOUT_S} s")
-    lines = out.splitlines()
+        kill_session(proc)
+    secs = time.perf_counter() - child["t"]
+    child["out"].seek(0)
+    lines = child["out"].read().splitlines()
+    child["out"].close()
+    check(not timed_out, f"{what} ran past {HARNESS_TIMEOUT_S} s")
     for line in lines:
         print(f"  | {line}")
-    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    check(proc.returncode in exit_codes, f"{what} exited {proc.returncode}")
     return lines, secs
+
+
+def run_script(module: str, args: list[str], env: dict,
+               exit_codes: tuple[int, ...] = (0,)) -> tuple[list[str], float]:
+    """``start_script``, then ``finish_script``."""
+    return finish_script(start_script(module, args, env), exit_codes)
 
 
 def committee_line(lines: list[str], n: int, mode: str, tc_heavy: bool) -> re.Match:
@@ -4508,6 +4600,16 @@ def harness_superbatch(card: str, device, imad_per_s: float) -> tuple[dict, dict
     return launches, harness_widths(widths, inner, device, imad_per_s, "18d"), lines
 
 
+def stream_dispatch(logs_dir: str) -> dict:
+    """Each node stream's last ``crypto.dispatch.cuda`` in ``logs_dir``."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(logs_dir, "telemetry-*.jsonl"))):
+        snaps = logs.read_telemetry_stream(path)
+        out[os.path.basename(path)] = (
+            snaps[-1]["counters"].get("crypto.dispatch.cuda", 0) if snaps else 0)
+    return out
+
+
 def harness_local(card: str, config1_tps: float) -> tuple[dict, dict]:
     """18e: ``run_local`` at BASELINE config 1 under ``cuda``, as four node
     and four client processes. Returns (the SUMMARY's figures, each node
@@ -4529,11 +4631,7 @@ def harness_local(card: str, config1_tps: float) -> tuple[dict, dict]:
                      "End-to-end latency"):
             check(what in summary, f"run_local's SUMMARY holds no {what}")
         check(summary["Consensus TPS"] > 0, "18e committed nothing")
-        dispatched = {}
-        for path in sorted(glob.glob(os.path.join(work, "logs", "telemetry-*.jsonl"))):
-            snaps = logs.read_telemetry_stream(path)
-            dispatched[os.path.basename(path)] = (
-                snaps[-1]["counters"].get("crypto.dispatch.cuda", 0) if snaps else 0)
+        dispatched = stream_dispatch(os.path.join(work, "logs"))
         check(len(dispatched) == nodes and all(dispatched.values()),
               f"18e: crypto.dispatch.cuda by node stream {dispatched}")
     finally:
@@ -4563,6 +4661,255 @@ def harness_phase(card: str, device, imad_per_s: float, config1_tps: float) -> d
             "local_dispatched": sum(local_dispatched.values())}
 
 
+# -- phase 19: the data-plane and robustness harness on the card ----------------
+
+
+def lifelines_close_or_name(lifeline: dict, what: str) -> None:
+    """Every batch of a lifeline report closes the seven edges or names its
+    open edge."""
+    check("error" not in lifeline and lifeline["batches"] > 0,
+          f"{what}: the lifeline report is {lifeline.get('error', lifeline['batches'])}")
+    for batch in lifeline["per_batch"]:
+        closed = all(v is not None for v in batch["edges_ms"].values())
+        check(closed or batch["open_edges"], f"{what}: batch {batch} neither closes nor names")
+
+
+def robust_dataplane(card: str) -> dict:
+    """19a: ``dataplane_sweep`` at phase 11's Conveyor setting as separate
+    node processes under the card's default backend, with lifelines."""
+    nodes, workers, rate, duration, base = DATAPLANE_SWEEP
+    tmp = tempfile.mkdtemp(prefix="phase19a-")
+    work, out = os.path.join(tmp, "bench"), os.path.join(tmp, "out")
+    try:
+        lines, secs = run_script("dataplane_sweep", [
+            "--nodes", str(nodes), "--workers", str(workers), "--rates", str(rate),
+            "--duration", str(duration), "--dtrace", "--base-port", str(base),
+            "--work-dir", work, "--output", out], harness_env())
+        tag = f"n{nodes}-w{workers}-512B.json"
+        for name in (f"dataplane-sweep-{tag}", f"dataplane-dtrace-{tag}"):
+            check(os.path.isfile(os.path.join(out, name)), f"19a: no artifact {name}")
+        with open(os.path.join(out, f"dataplane-sweep-{tag}")) as f:
+            (row,) = json.load(f)["rows"]
+        with open(os.path.join(out, f"dataplane-dtrace-{tag}")) as f:
+            lifeline = json.load(f)["lifeline"]
+        check("error" not in row and row["e2e_tps"] > 0 and isinstance(row["shed"], int),
+              f"19a: the sweep point is {row}")
+        lifelines_close_or_name(lifeline, "19a")
+        dispatched = stream_dispatch(os.path.join(work, "logs"))
+        check(len(dispatched) == nodes and all(dispatched.values()),
+              f"19a: crypto.dispatch.cuda by node stream {dispatched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"robust 19a on {card}: dataplane_sweep --nodes {nodes} --workers {workers} --rates "
+          f"{rate} --duration {duration} --dtrace (cuda, separate node processes): e2e "
+          f"{row['e2e_tps']} tx/s, latency {row['e2e_latency_ms']} ms; consensus "
+          f"{row['consensus_tps']} tx/s, latency {row['consensus_latency_ms']} ms; shed "
+          f"{row['shed']}, rate misses {row['rate_misses']}; lifelines: {lifeline['batches']} "
+          f"batches, {lifeline['complete']} complete, top cost centers "
+          f"{lifeline['top_cost_centers']}; crypto.dispatch.cuda by node "
+          f"{sorted(dispatched.values())}; child {secs:.1f} s")
+    return {"row": row, "dispatched": sum(dispatched.values())}
+
+
+def robust_fleet(card: str) -> dict:
+    """19b: ``fleet_bench``, open-loop connections with Poisson arrivals."""
+    nodes, workers, rate, fleet, bundle, duration, base = FLEET
+    tmp = tempfile.mkdtemp(prefix="phase19b-")
+    work, out = os.path.join(tmp, "fleet"), os.path.join(tmp, "out")
+    try:
+        _, secs = run_script("fleet_bench", [
+            "--nodes", str(nodes), "--workers", str(workers), "--rate", str(rate),
+            "--fleet", str(fleet), "--bundle-txs", str(bundle), "--duration", str(duration),
+            "--base-port", str(base), "--work-dir", work, "--output", out], harness_env())
+        path = os.path.join(out, f"fleet-n{nodes}-w{workers}-c{fleet}-512B.json")
+        check(os.path.isfile(path), f"19b: no artifact {path}")
+        with open(path) as f:
+            res = json.load(f)["results"]
+        check(res["e2e_tps"] > 0 and all(isinstance(res[k], int) for k in (
+            "e2e_latency_p99_ms", "e2e_latency_p999_ms", "shed", "churns",
+            "ingress_depth_peak")), f"19b: the fleet's results are {res}")
+        dispatched = stream_dispatch(os.path.join(work, "logs"))
+        check(len(dispatched) == nodes and all(dispatched.values()),
+              f"19b: crypto.dispatch.cuda by node stream {dispatched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"robust 19b on {card}: fleet_bench --nodes {nodes} --workers {workers} --rate {rate} "
+          f"--fleet {fleet} --bundle-txs {bundle} --duration {duration} (cuda): e2e "
+          f"{res['e2e_tps']} tx/s, latency mean {res['e2e_latency_ms']} / p99 "
+          f"{res['e2e_latency_p99_ms']} / p99.9 {res['e2e_latency_p999_ms']} ms; shed "
+          f"{res['shed']}, churns {res['churns']}, ingress watermark "
+          f"{res['ingress_depth_peak']}; crypto.dispatch.cuda by node "
+          f"{sorted(dispatched.values())}; child {secs:.1f} s")
+    return {"results": res, "dispatched": sum(dispatched.values())}
+
+
+def robust_soak(card: str) -> dict:
+    """19c: ``soak`` under chaos seed 7 with the tuned watchtower preset,
+    run alone. The checker must find the run safe and the log parse no
+    panic; the checker's liveness verdict and the SLO engine's are read and
+    printed but not required (ROADMAP §3 F11: both packages' committees
+    sometimes stall after this schedule's last heal), and the script's
+    verdict line and exit code must be the conjunction of the three
+    judges."""
+    nodes, rate, duration, chaos, base = SOAK
+    tmp = tempfile.mkdtemp(prefix="phase19c-")
+    work, out = os.path.join(tmp, "soak"), os.path.join(tmp, "out")
+    try:
+        lines, secs = run_script("soak", [
+            "--nodes", str(nodes), "--rate", str(rate), "--duration", str(duration),
+            "--chaos-seed", str(chaos), "--watch-config", "preset:tuned-n4",
+            "--base-port", str(base), "--work-dir", work, "--output", out], harness_env(),
+            exit_codes=(0, 1))
+        with open(os.path.join(out, f"soak-slo-n{nodes}-{duration}s-chaos{chaos}.json")) as f:
+            verdict = json.load(f)
+        chaos_v, slo = verdict["chaos"], verdict["slo"]
+        live = chaos_v["liveness"]
+        check(chaos_v["safety"]["ok"] and verdict["parse_error"] is None,
+              f"19c: the checker {chaos_v['safety']}, the parse {verdict['parse_error']}")
+        judges = slo["ok"] and live["recovered"] and verdict["parse_error"] is None
+        check(verdict["ok"] == judges and lines[-1] == (
+            f"soak verdict: {'PASS' if verdict['ok'] else 'FAIL'}"),
+            f"19c: the verdict {verdict['ok']} is not its judges' (slo {slo['ok']}, liveness "
+            f"{live['recovered']}): {lines[-1]}")
+        alerts = verdict["alerts"]
+        check(all(a["config"] == TUNED_N4 for a in alerts["alerts"]),
+              f"19c: alerts not from the tuned preset: {[a['config'] for a in alerts['alerts']]}")
+        dispatched = stream_dispatch(os.path.join(work, "logs"))
+        check(sum(dispatched.values()) > 0, f"19c: crypto.dispatch.cuda by node {dispatched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    breaches = sorted({(name[10:16], s_["spec"]["name"], s_["violated_fraction"])
+                       for name, v in slo["nodes"].items() for s_ in v["slos"] if not s_["ok"]})
+    print(f"robust 19c on {card}: soak --nodes {nodes} --rate {rate} --duration {duration} "
+          f"--chaos-seed {chaos} --watch-config preset:tuned-n4 (cuda): "
+          f"{'PASS' if verdict['ok'] else 'FAIL'}; the checker safe and "
+          + ("recovered" if live["recovered"] else "NOT recovered (F11)")
+          + f" after the last heal at {live['heal_t']} s (recovery {live['recovery_s']} s, "
+          f"post-heal commits {live['post_heal_commits']}, laggards {live['laggards']}), no "
+          f"panic in the logs, the SLO engine "
+          f"{'ok' if slo['ok'] else 'breached'} over {len(slo['nodes'])} streams"
+          + (f" (node, SLO, degraded share of windows, allowed {SOAK_ALLOWED}: {breaches})"
+             if breaches else "")
+          + f"; the watchtower ({TUNED_N4}) raised {alerts['count']} alerts "
+          f"{sorted({a['detector'] for a in alerts['alerts']})}, suspects {alerts['suspects']}; "
+          f"telemetry {verdict['telemetry']}; crypto.dispatch.cuda by node "
+          f"{sorted(dispatched.values())}; child {secs:.1f} s")
+    return {"verdict": verdict, "dispatched": sum(dispatched.values())}
+
+
+def fault_matrix_start() -> dict:
+    """19d's command line, ``fault_matrix`` at N = 20 on both planes under
+    ``cuda-batched``, started as a child; ``robust_fault_matrix`` waits
+    for it."""
+    n, duration, base, _, _ = FAULT_MATRIX
+    tmp = tempfile.mkdtemp(prefix="phase19d-")
+    return {"tmp": tmp, "child": start_script("fault_matrix", [
+        "--nodes", str(n), "--duration", str(duration), "--base-port", str(base),
+        "--output", tmp], harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda-batched"))}
+
+
+def fault_matrix_finish(card: str, started: dict) -> None:
+    """Waits for 19d's command line: every verdict on both planes safe and
+    recovered."""
+    n, duration, _, _, _ = FAULT_MATRIX
+    try:
+        lines, secs = finish_script(started["child"])
+        check(f"fault matrix N={n}: all scenarios safe + recovered" in lines,
+              "19d: fault_matrix did not report every scenario safe and recovered")
+        with open(os.path.join(started["tmp"], f"fault-matrix-n{n}.json")) as f:
+            planes = json.load(f)["planes"]
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    check(sorted(planes) == ["asyncio", "native"], f"19d: planes {sorted(planes)}")
+    for plane, verdicts in planes.items():
+        for name, v in verdicts.items():
+            check(v["safety"]["ok"] and v["liveness"]["recovered"], f"19d: {plane}/{name} {v}")
+        print(f"robust 19d on {card}: fault_matrix --nodes {n} --duration {duration:g} "
+              f"(cuda-batched), plane {plane}: " + "; ".join(
+                  f"{name} safe, recovered in {v['liveness']['recovery_s']} s, slo "
+                  f"{'ok' if v['slo']['ok'] else 'degraded'}" for name, v in verdicts.items()))
+    print(f"robust 19d on {card}: fault_matrix's command line, both planes, beside the run "
+          f"here, child {secs:.1f} s")
+
+
+def robust_fault_matrix(card: str, device, imad_per_s: float, started: dict) -> tuple[dict, dict]:
+    """19d: ``fault_matrix``'s ``run_plane`` in this process on its
+    (asyncio) plane with the launches counted, while the command line's
+    child (``fault_matrix_start``) runs both planes: each ``CudaBackend``
+    call launches K2 2, K3 2, verdict 1 and one decompression, and every
+    other decompression is a key cache insert. Then the child's verdicts,
+    then the kernels at the widths no earlier phase held, timed once the
+    child has left the card. Returns (the launches, the kernels' rows)."""
+    n, _, _, here_s, here = FAULT_MATRIX
+    saved_backend = crypto._BACKEND
+    telemetry.reset_for_tests()
+    crypto.set_backend("cuda-batched")
+    inner = crypto.get_backend().inner
+    gate, counts, widths = threading.Lock(), {"calls": 0, "inserts": 0}, {}
+    real_verify, real_insert = CudaBackend.verify_batch, ov._decompress_packed
+
+    def counted_verify(self, msgs, pubs, sigs):
+        with gate:
+            out = real_verify(self, msgs, pubs, sigs)
+            counts["calls"] += 1
+            k = len(msgs)
+            widths.setdefault((ov._pad_to_pow2(k), ov._pad_to_pow2(k + 1)),
+                              (list(msgs), list(pubs), list(sigs)))
+        return out
+
+    def counted_insert(packed):
+        counts["inserts"] += 1
+        return real_insert(packed)
+
+    CudaBackend.verify_batch, ov._decompress_packed = counted_verify, counted_insert
+    t = time.perf_counter()
+    try:
+        with gate:
+            reset_launches()
+        verdicts = fault_matrix.run_plane(argparse.Namespace(
+            nodes=n, duration=here_s, timeout=1_000, base_port=here, plane="asyncio"))
+        with gate:
+            launches, calls, inserts = launch_counts(), counts["calls"], counts["inserts"]
+    finally:
+        CudaBackend.verify_batch, ov._decompress_packed = real_verify, real_insert
+        crypto._BACKEND = saved_backend
+        telemetry.reset_for_tests()
+        telemetry.disable()
+        decode_arena.arena()._metrics()  # told that telemetry is off
+        cert_arena.reset()
+    wall_s = time.perf_counter() - t
+    for name, v in verdicts.items():
+        check(v["safety"]["ok"] and v["liveness"]["recovered"], f"19d here: {name} {v}")
+    want = {**{k: 0 for k in launches}, "decompress": calls + inserts,
+            "msm_partials_signed": 2 * calls, "msm_combine": 2 * calls, "verdict": calls}
+    check(calls > 0 and launches == want,
+          f"19d here: {calls} CudaBackend calls and {inserts} cache inserts launched {launches}")
+    print(f"robust 19d on {card}: run_plane here (asyncio, cuda-batched, N={n}, "
+          f"{here_s:g} s): " + "; ".join(
+        f"{name} safe, recovered in {v['liveness']['recovery_s']} s" for name, v in verdicts.items())
+        + f"; {calls} CudaBackend calls, {inserts} key cache inserts; launches "
+        + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()) if v) + f"; {wall_s:.1f} s")
+    fault_matrix_finish(card, started)
+    return launches, harness_widths(widths, inner, device, imad_per_s, "19d")
+
+
+def robust_phase(card: str, device, imad_per_s: float) -> dict:
+    """Phase 19: the port's data-plane and robustness harness, a-d."""
+    t = time.perf_counter()
+    dataplane = robust_dataplane(card)
+    fleet = robust_fleet(card)
+    # a and b (throughput figures) and c (a liveness verdict after chaos)
+    # run alone; d's command line (one N = 20 committee at a time, one core)
+    # runs beside d's run here (another committee, another core).
+    soak = robust_soak(card)
+    started = fault_matrix_start()
+    fm_launches, fm_rows = robust_fault_matrix(card, device, imad_per_s, started)
+    print(f"robust: phase 19 in {time.perf_counter() - t:.1f} s")
+    return {"fault_matrix": fm_launches, "fault_matrix_rows": fm_rows,
+            "dispatch": {"dataplane": dataplane["dispatched"], "fleet": fleet["dispatched"],
+                         "soak": soak["dispatched"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4575,6 +4922,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        """Where the call's time goes: each phase's end on one clock."""
+        print(f"at {time.perf_counter() - t_start:.1f} s: {what} done")
 
     # 1. toolchain
     card = nvidia_smi("name,power.limit")
@@ -4599,6 +4951,7 @@ def main() -> int:
         f"{name} {secs:.1f} s" for name, (secs, _) in sorted(kernel_build.build_log.items())))
     for name, (regs, stack, spill) in sorted(ptxas_usage().items()):
         print(f"  ptxas {name}: {regs} registers, {stack} B stack, {spill} B spill stores")
+    stamp("phase 2")
 
     # 17, run here, right after the build: engine groups (the committee
     # sharded over spawned worker processes, each verifying on the card) and
@@ -4607,12 +4960,15 @@ def main() -> int:
     t = time.perf_counter()
     before = launch_counts()
     groups = groups_phase(card)
-    sim = sim_phase(card)
     check(launch_counts() == before,
           f"phase 17: this process launched kernels: {before} -> {launch_counts()}")
     phase17_s = time.perf_counter() - t
-    print(f"phase 17 in {phase17_s:.1f} s (17a-b's spawns and 17c included); this process "
-          f"launched no kernel")
+    print(f"phase 17a-b in {phase17_s:.1f} s (the spawns included); this process launched no "
+          f"kernel")
+    stamp("phase 17a-b")
+    # 17c's two children run on the host's other cores beside phases 3-5,
+    # which check the kernels on the card from this one thread.
+    sim_children = sim_start()
 
     # 3. the main path. Phases 3 to 7 run with the process-wide cert arena
     # off, so that a repeated verify of one QC pays the verify it is
@@ -4641,11 +4997,16 @@ def main() -> int:
     print("oracle: signed and unsigned MSM at m=4 equal the RFC 8032 oracle")
 
     # 5. kernels against plain versions
-    rows, notes, shapes = kernel_checks(qc_batch(qcs[0]), backend, device, imad_per_s)
+    rows, notes, shapes = kernel_checks(qc_batch(qcs[0]), backend, device, imad_per_s,
+                                        curve_msm=True)
     print(f"kernels vs plain on the card (limb-exact; MSMs also affine-equal to the plain curve "
           f"MSM), mf={shapes[0]} mc={shapes[1]} uncached m={shapes[2]}:")
     for line in notes:
         print("  " + line)
+
+    stamp("phases 3-5")
+    sim = sim_phase(card, sim_children)
+    stamp("phase 17c")
 
     # 6. warm QC timing
     wall, host, span = qc_timing(qcs, committee, backend, device, reps=3)
@@ -4665,6 +5026,8 @@ def main() -> int:
     check(aten_ops <= MAX_ATEN_OPS and device_ops <= MAX_DEVICE_OPS,
           f"a warm QC ran {aten_ops:.0f} aten ops and {device_ops:.0f} device ops "
           f"(at most {MAX_ATEN_OPS} and {MAX_DEVICE_OPS})")
+
+    stamp("phases 6-7")
 
     # 8. the node's certificate path
     os.environ["HOTSTUFF_CERT_ARENA"] = "1"
@@ -4726,10 +5089,12 @@ def main() -> int:
           f"{wide_ms:.2f} ms, {wide_ms * 1e3 / batched.max_sigs:.2f} us/sig (median of 3) on {card}:")
     for line in wide_notes:
         print("  " + line)
+    stamp("phase 8")
 
     # 9. the consensus engine on the card
     committee_launches, committee_rows, profiled_launches, committee_ms = committee_phase(
         args.seed, card, device, imad_per_s)
+    stamp("phase 9")
 
     # 10. the mempool and the node: the digest kernel against its plain
     # version and hashlib, its times, then BASELINE config 1
@@ -4739,14 +5104,17 @@ def main() -> int:
     print(f"sha512 checks and times in {time.perf_counter() - t:.1f} s; SASS of sha512_kernel: "
           f"{sass_counts()}")
     config1_launches, sha_row, config1_rows = node_phase(args.seed, card, device, imad_per_s)
+    stamp("phase 10")
 
     # 11. the data plane: four nodes with two workers each at 20,000 tx/s
     conveyor_launches, conveyor_rows = conveyor_phase(args.seed, card, device, imad_per_s)
+    stamp("phase 11")
 
     # 12. replica rejoin: a wiped engine past its peers' floor, a node's warm
     # restart, and the snapshot check at N = 1000
     rejoin_launches, snapshot_launches, rejoin_rows = rejoin_phase(
         args.seed, card, device, imad_per_s, keys, committee)
+    stamp("phase 12")
 
     # 13. the sharded verifier: the tree-combine verdict, then phase 3's QC
     # on meshes of the card
@@ -4755,32 +5123,43 @@ def main() -> int:
     rows["verdict_tree"] = tree_row
     # The sharded runs are the tree kernel's path; phase 3 never reaches it.
     launches["verdict_tree"] = sharded_launches_["verdict_tree"]
+    stamp("phase 13")
 
     # 14. the port's bench: its cached and uncached paths at 1343 signatures,
     # then the kernels at its widths
     bench_cached, bench_uncached, bench_rows = bench_phase(card, device, imad_per_s)
+    stamp("phase 14")
 
     # 15. faultline: the reference's fault scenarios on committees that
     # verify their QCs on the card, the watchtower, and batch_withhold
     faultline_launches = faultline_phase(args.seed, card, device)
+    stamp("phase 15")
 
     # 16. the native plane: phase 9's committee, BASELINE config 4 at
     # N = 1000, config 1 on native stores and a partition scenario, in a
     # child process on the C++ transport
     native, native_ms = native_phase(args.seed, committee_ms)
+    stamp("phase 16")
 
     print(f"phase 17 beside the single-process committees of this call: 17a N=100 in 4 groups "
           f"{groups['17a']['ms_per_round']:.2f} ms per committed round, 16a native "
           f"{native_ms['n100']:.2f} ms, phase 9 asyncio {committee_ms:.2f} ms; 17b N=1000 in 8 "
           f"groups {groups['17b']['ms_per_round']:.2f} ms, 16b native {native_ms['n1000']:.2f} ms, "
           f"17b's first commit {groups['17b']['first_commit_s']:.2f} s after its start; 17c "
-          f"{sim['per_min']:.0f} seeds a minute, {sim['hits']} memo hits; phase 17 "
+          f"{sim['per_min']:.0f} seeds a minute; phase 17a-b "
           f"{phase17_s:.1f} s; launches counted in the groups, 17a "
           f"{groups['17a']['launches']}, 17b {groups['17b']['launches']}")
 
     # 18. the measurement harness: the port's copies of the reference's
     # benchmark scripts, run through their command lines
     harness = harness_phase(card, device, imad_per_s, sha_row["config1_tx_per_s"])
+    stamp("phase 18")
+
+    # 19. the data-plane and robustness harness: the Conveyor sweep, the
+    # open-loop fleet, the SLO-gated soak and the fault matrix, through their
+    # command lines
+    robust = robust_phase(card, device, imad_per_s)
+    stamp("phase 19")
 
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
@@ -4808,10 +5187,12 @@ def main() -> int:
             "launches_groups_n1000": groups["17b"]["launches"][name],
             **{f"launches_harness_{part}": harness[part][name]
                for part in ("crypto", "digest", "superbatch")},
+            "launches_harness_fault_matrix": robust["fault_matrix"][name],
         }
         if name == "verdict":
             entry["harness_dispatch_cuda"] = {"protocol": harness["protocol_dispatched"],
-                                              "local": harness["local_dispatched"]}
+                                              "local": harness["local_dispatched"],
+                                              **robust["dispatch"]}
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
             entry["unsharded_ms_per_qc"] = sharded["unsharded"]
@@ -4821,7 +5202,8 @@ def main() -> int:
                 ("conveyor", conveyor_rows, name), ("rejoin", rejoin_rows, name),
                 ("bench", bench_rows, name), ("bench_uncached", bench_rows, f"{name}_uncached"),
                 ("harness_crypto", harness["crypto_rows"], name),
-                ("harness_superbatch", harness["superbatch_rows"], name)):
+                ("harness_superbatch", harness["superbatch_rows"], name),
+                ("harness_fault_matrix", robust["fault_matrix_rows"], name)):
             row_x = extra.get(row_name)
             if row_x is not None:
                 width = (f"{prefix} flush" if prefix in ("fused", "widest")
@@ -4850,6 +5232,7 @@ def main() -> int:
         "launches_groups_n1000": groups["17b"]["launches"]["sha512"],
         **{f"launches_harness_{part}": harness[part]["sha512"]
            for part in ("crypto", "digest", "superbatch")},
+        "launches_harness_fault_matrix": robust["fault_matrix"]["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,9 +27,9 @@ Entry points:
   scenario generation (duplicate identity across partitions);
 - :mod:`~hotstuff_tpu_torch.sim.shrink` — minimize a failing schedule to a
   pinned reproducer;
-- the reference's ``benchmark/sim_sweep.py`` is the checker-gated
-  seed-range sweep (not ported; ``chip_smoke.py`` phase 17c runs its loop
-  on the port's modules).
+- :mod:`hotstuff_tpu_torch.benchmark.sim_sweep` (the reference's
+  ``benchmark/sim_sweep.py``) is the checker-gated seed-range sweep;
+  ``chip_smoke.py`` phase 17c runs it from its command line.
 """
 
 from .clock import VirtualClock

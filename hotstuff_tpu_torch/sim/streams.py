@@ -30,9 +30,10 @@ Bridge conventions (the parts a real emitter derives from the host):
   real buffered writer. A clean scenario end flushes everything behind a
   ``final: true`` snapshot.
 
-``Watchtower.feed`` replays the merged timeline in milliseconds; the
-reference's ``benchmark/detector_sweep.py`` (not ported) is the
-labeled-incident scoring loop built on top.
+``Watchtower.feed`` replays the merged timeline in milliseconds;
+:mod:`hotstuff_tpu_torch.benchmark.detector_sweep` (the reference's
+``benchmark/detector_sweep.py``) is the labeled-incident scoring loop built
+on top.
 """
 
 from __future__ import annotations

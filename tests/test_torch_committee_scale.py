@@ -114,8 +114,10 @@ def test_protocol_mode_commits_and_profiles_the_same_stages(tmp_path, monkeypatc
 def test_chaos_replay_traces_are_byte_identical_across_packages(tmp_path, monkeypatch, capsys):
     traces = {}
     for i, label in enumerate(PACKAGES):
+        # Each run binds its base and, for the replay, base + 20: the last
+        # replay ends at BASE + 63, inside this file's range.
         argv = ["--nodes", "4", "--faults", "chaos:3", "--faults-duration", "4", "--replay",
-                "--base-port", str(BASE + 30 + 20 * i), "--output", str(tmp_path / label)]
+                "--base-port", str(BASE + 20 + 20 * i), "--output", str(tmp_path / label)]
         code, lines = run_main(label, argv, monkeypatch, capsys)
         assert code == 0, (label, lines)
         assert lines[0].startswith("faultline scenario=chaos-3 seed=3 nodes=4: safety=ok "

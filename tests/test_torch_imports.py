@@ -14,7 +14,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+
+#: the data-plane and robustness harness scripts.
+HARNESS_SCRIPTS = ("dtrace_assemble", "dataplane_sweep", "fleet_bench", "fault_matrix", "soak",
+                   "detector_bench", "sim_sweep", "detector_sweep")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -99,7 +105,8 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "sim.statesync", "sim.streams", "benchmark", "benchmark.hostinfo",
                  "benchmark.logs", "benchmark.trace_assemble", "benchmark.profile_assemble",
                  "benchmark.watchtower", "benchmark.committee_scale", "benchmark.digest_bench",
-                 "benchmark.superbatch_bench", "benchmark.local", "benchmark.run_local"):
+                 "benchmark.superbatch_bench", "benchmark.local", "benchmark.run_local",
+                 *(f"benchmark.{script}" for script in HARNESS_SCRIPTS)):
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
@@ -163,3 +170,49 @@ def test_kernel_times_runs_as_a_script_without_a_card():
                          timeout=300, cwd=REPO, env=env)
     assert "partially initialized module 'logging'" not in out.stderr, out.stderr
     assert out.returncode == 1 and "kernel_times: no CUDA device" in out.stderr, out.stderr
+
+
+@pytest.mark.parametrize("script", HARNESS_SCRIPTS)
+def test_harness_script_imports_only_the_port(script):
+    path = f"hotstuff_tpu_torch/benchmark/{script}.py"
+    imported = imported_by(path)
+    top = {name.split(".")[0] for name in imported}
+    assert not top & {"jax", "jaxlib", "hotstuff_tpu", "benchmark", "bench"}, sorted(imported)
+    text = (REPO / path).read_text()
+    assert "sys.path.insert" not in text and "sys.path.append" not in text
+
+
+#: each harness script that reaches the card: a short default run, and what
+#: only its result would print.
+CARD_RUNS = {
+    "dataplane_sweep": (["--rates", "1000", "--duration", "1", "--base-port", "24800",
+                         "--work-dir", "{tmp}/bench", "--output", "{tmp}/out"],
+                        "hotstuff-dataplane-sweep-v1"),
+    "fleet_bench": (["--duration", "1", "--base-port", "24800", "--work-dir", "{tmp}/bench",
+                     "--output", "{tmp}/out"], "hotstuff-fleet-v1"),
+    "fault_matrix": (["--nodes", "4", "--duration", "1", "--base-port", "24800",
+                      "--output", "{tmp}/out"], "fault matrix N="),
+    "soak": (["--duration", "1", "--base-port", "24800", "--work-dir", "{tmp}/soak/w",
+              "--output", "{tmp}/out"], "soak verdict"),
+    "detector_bench": (["--seeds", "3", "--controls", "0", "--duration", "1",
+                        "--base-port", "24800", "--output", "{tmp}/out"], "detector bench"),
+}
+
+
+@pytest.mark.parametrize("script", sorted(CARD_RUNS))
+def test_card_harness_script_exits_nonzero_without_a_card(tmp_path, script):
+    """Run as a user types it, with no ``HOTSTUFF_*`` switch and no card, each
+    script that reaches the card raises, names CUDA and prints no result:
+    none falls back to the CPU. Ports: none bound (each raises first)."""
+    args, result = CARD_RUNS[script]
+    (tmp_path / "soak").mkdir()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HOTSTUFF_")}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, also on a GPU host
+    out = subprocess.run(
+        [sys.executable, "-m", f"hotstuff_tpu_torch.benchmark.{script}",
+         *(a.format(tmp=tmp_path) for a in args)],
+        capture_output=True, text=True, timeout=120, cwd=REPO, env=env)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr, out.stderr[-2000:]
+    assert result not in out.stdout
+    assert not (tmp_path / "out").exists() and not (tmp_path / "bench").exists()

@@ -7,8 +7,9 @@ parity with the reference's.
   with a new pid, a crash that loses the unflushed tail, each detector
   firing on its labelled fixture and accusing the victim, the near-miss
   negatives staying quiet, and alert times in virtual seconds. The
-  fixtures are the reference's ``benchmark/detector_sweep.py`` scenarios,
-  carried into the port's ``Scenario`` by their JSON.
+  fixtures are the port's ``hotstuff_tpu_torch/benchmark/detector_sweep.py``
+  scenarios (the reference's, ``tests/test_torch_harness_sim.py``), carried
+  into the reference's ``Scenario`` by their JSON for the parity cases.
 - Parity: a fault-free run's rendered records, and a crash run's, equal the
   reference's byte for byte; the port's watchtower raises the reference's
   alerts on the same recording.
@@ -20,11 +21,11 @@ import json
 
 import pytest
 
-from benchmark.detector_sweep import control_scenario, single_fault_scenario
 from hotstuff_tpu.faultline.policy import Scenario as JScenario
 from hotstuff_tpu.sim.streams import StreamRecorder as JRecorder
 from hotstuff_tpu.sim.streams import replay_watchtower as j_replay
 from hotstuff_tpu.sim.world import SimWorld as JWorld
+from hotstuff_tpu_torch.benchmark.detector_sweep import control_scenario, single_fault_scenario
 from hotstuff_tpu_torch.faultline.policy import Scenario
 from hotstuff_tpu_torch.sim.streams import StreamRecorder, replay_watchtower
 from hotstuff_tpu_torch.sim.world import SimWorld
@@ -46,7 +47,8 @@ SMALL = dict(window_s=2.0, window_rounds=12, min_rounds=3, settle_s=1.0, laggard
 
 
 def port(scenario) -> Scenario:
-    """A reference scenario (the detector sweep's fixtures) in the port."""
+    """A scenario of either package (the detector sweep's fixtures, the
+    reference's near misses) as the port's ``Scenario``."""
     return Scenario.from_json(scenario.to_json())
 
 
@@ -172,7 +174,7 @@ def test_rendered_records_equal_the_references(fixture, tmp_path):
     scenario = control_scenario(0) if fixture == "control" else single_fault_scenario(fixture, 0)
     t_rec, j_rec = StreamRecorder(interval_s=0.5), JRecorder(interval_s=0.5)
     SimWorld(port(scenario), 4, recorder=t_rec).run()
-    JWorld(scenario, 4, recorder=j_rec).run()
+    JWorld(JScenario.from_json(scenario.to_json()), 4, recorder=j_rec).run()
     assert t_rec.render() == j_rec.render()
     t_paths = t_rec.write(str(tmp_path / "port"))
     j_paths = j_rec.write(str(tmp_path / "reference"))

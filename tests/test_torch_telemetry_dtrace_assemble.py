@@ -1,5 +1,7 @@
 """Twin of ``tests/test_dtrace_assemble.py``, run against the port's copy
-(``hotstuff_tpu_torch.telemetry``).
+(``hotstuff_tpu_torch.telemetry``) and the port's assembler
+(``hotstuff_tpu_torch.benchmark.dtrace_assemble`` over its
+``trace_assemble``).
 
 Lifeline assembly tests mirroring ``tests/test_trace_assemble``:
 multi-node batch-timeline merge, clock-skew correction via the round
@@ -13,12 +15,12 @@ import json
 
 import pytest
 
-from benchmark.dtrace_assemble import (
+from hotstuff_tpu_torch.benchmark.dtrace_assemble import (
     assemble,
     assemble_batches,
     load_dtrace_events,
 )
-from benchmark.trace_assemble import estimate_offsets, load_events
+from hotstuff_tpu_torch.benchmark.trace_assemble import estimate_offsets, load_events
 from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.telemetry import TraceBuffer, build_dtrace_record, build_trace_record
 

@@ -905,3 +905,14 @@ def test_synthetic_incidents_give_the_references_alerts_and_scoreboard():
     assert watches[0].scoreboard() == watches[1].scoreboard()
     assert {"silent_voter", "laggard", "equivocation", "slope_breach",
             "sync_stall"} <= {a["detector"] for a in fired[0]}
+
+
+def test_tuned_preset_loads_and_equals_the_references():
+    """``WatchtowerConfig.preset("tuned-n4")`` reads the port's own copy
+    of the committed preset (``telemetry/presets/tuned-n4.json``, byte for
+    byte the reference's): the same config field for field and the same
+    fingerprint as the reference's call."""
+    ours = WatchtowerConfig.preset("tuned-n4")
+    ref = j_watchtower.WatchtowerConfig.preset("tuned-n4")
+    assert ours.__dict__ == ref.__dict__
+    assert ours.fingerprint() == ref.fingerprint() == "e9e99f16bffb"
