@@ -486,6 +486,41 @@ unguarded (any failure ends the run with a non-zero exit):
       The cached kernels are held against their plain versions at each
       width it ran that no earlier phase held, once the command line's
       child has ended.
+20. the measurement tools: the port's copies of the reference's
+   ``regress``, smoke gates and profilers, each from its command line as
+   phase 18 runs them (but c):
+   a. ``regress --nodes 40 --rounds 12 --repeats 2 --skip-crypto
+      --base-port 15600`` under ``cuda-batched``, alone, then ``regress
+      --skip-protocol``: each report parses, its check says ``compared``
+      against the baseline committed from the card's host
+      (``results/committee-protocol-cuda-batched-40.txt``,
+      ``results/bench-torch-1343-h100.json``), and its verdict line and exit
+      code say its report's GREEN or RED, which is printed with the ratio and
+      not required (hosts of one card differ by more than the gate's 1.5x);
+   b. ``telemetry_smoke``, ``profile_smoke`` and ``watchtower_smoke`` at
+      ``--nodes 10 --repeats 2`` under ``cuda-batched`` (ports 14200, 14828,
+      14928), started together, with a's crypto check and d beside them:
+      each exits 0, or 2 over its overhead budget (which stays 1%) with the
+      overhead printed; no schema, record, ingest or alert problem; every
+      telemetry stream it wrote shows ``crypto.dispatch.cuda`` moving;
+   c. ``profile_device 1343`` in this process, alone, the counts zeroed
+      before and read after: every stage of the reference printed, each
+      stage's 50 calls (2 warm-ups, 3 rounds of 16) launching exactly the
+      kernels it names (the pipeline K1, K4, K3 and the verdict; the root
+      alone ``sqrt_pow``; ...) and no other; then the root alone against its
+      plain version at the profile's 4096 lanes (phase 14 held K4 and K3
+      there);
+   d. ``sample_profile --nodes 40 --rounds 10 --by-stage``, ``diag_protocol
+      --nodes 40 --seconds 10`` and ``profile_protocol --seconds 5`` under
+      ``cuda-batched`` (ports 15028, 15068, 15760; each a cut from the
+      reference's 15 rounds, 60 s and 20 s): each exits 0 and prints its
+      table; the diagnostic's commits are printed, not required (a
+      committee's round 1 can wait out its 30 s timeout at boot);
+   e. ``dtrace_smoke --repeats 2`` (ports 14428-14791) and ``netplane_frames
+      --sizes 1024,65536,396288 --frames 200`` (14321-14326), which make no
+      card call, started beside phases 3-5 with 17c's children: the lifeline
+      smoke exits 0 or 2 with no problem; every frame of every row acked, the
+      native rows with the engine's counter deltas.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -515,7 +550,10 @@ first; ``launches_harness_fault_matrix`` from 19d's ``run_plane`` in this
 process and the ``harness_fault_matrix_*`` keys at the widest width it held
 first; and on the verdict's row ``harness_dispatch_cuda``, the
 ``crypto.dispatch.cuda`` that 18b's, 18e's, 19a's, 19b's and 19c's node
-processes streamed)
+processes streamed; ``launches_profile_device`` from phase 20c in this
+process, which is also ``sqrt_pow``'s ``launches``, since its root-alone
+stage is the only path that reaches it, and the ``profile_device_*`` keys at
+the widths 20c held first)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -572,7 +610,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import bench_torch  # noqa: E402
 from hotstuff_tpu_torch import crypto, faultline, network, telemetry  # noqa: E402
 from hotstuff_tpu_torch.benchmark import committee_scale, digest_bench, logs  # noqa: E402
-from hotstuff_tpu_torch.benchmark import fault_matrix, superbatch_bench  # noqa: E402
+from hotstuff_tpu_torch.benchmark import fault_matrix, profile_device, superbatch_bench  # noqa: E402
 from hotstuff_tpu_torch.consensus import Consensus, Parameters, cert_arena, errors  # noqa: E402
 from hotstuff_tpu_torch.consensus.aggregator import Aggregator  # noqa: E402
 from hotstuff_tpu_torch.consensus.config import Authority, Committee  # noqa: E402
@@ -659,6 +697,8 @@ MAX_ATEN_OPS, MAX_DEVICE_OPS = 400, 60
 # Every cached-path width (mf, mc) whose kernels were held against their
 # plain versions in this run; phases 18 and 19 hold only the widths not in it.
 CHECKED_WIDTHS: set[tuple[int, int]] = set()
+# The uncached path's lane counts (K1, K4 + K3, its verdict) held likewise.
+CHECKED_UNCACHED: set[int] = set()
 
 # The bound. These kernels are bound by int32 multiply-adds (IMAD): a field
 # mul is a 20 x 20 limb schoolbook, 400 IMADs. A Hopper SM issues 64 int32
@@ -880,6 +920,41 @@ SOAK_ALLOWED = 0.34  # the script's default --allow-violation-fraction
 # N, seconds of the command line's run, base port (children), seconds and base
 # port of the run here
 FAULT_MATRIX = (20, 8.0, 15400, 4.0, 15500)
+# Phase 20: the measurement tools through their command lines. a: ``regress``
+# (the committee at its default N = 40 and 12 rounds, 2 repeats, under
+# ``cuda-batched``; then its crypto check) against the card's committed
+# baselines; b: the three smoke gates at N = 10, 2 repeats (the reference's
+# defaults are 3); c: ``profile_device`` at the bench's width in this process;
+# d: ``sample_profile`` (10 rounds of its 15), ``diag_protocol`` (10 s of its
+# 60) and ``profile_protocol`` (5 s of its 20) under ``cuda-batched``; e:
+# ``dtrace_smoke`` (2 repeats of its 3) and ``netplane_frames``, which make no
+# card call, beside phases 3-5. Ports, below the H100 host's ephemeral range
+# and clear of phases 9-19: a 15600-15759; b 14200-14299, 14828-14927 and
+# 14928-15027 (each leg 2 N); d 15028-15067, 15068-15107, and 15760-15763,
+# 15860-15863, 15960-15963; e 14428-14791 (four legs a hundred apart, each
+# binding base + 40 to base + 63) and 14321-14326.
+REGRESS = (40, 12, 2, 15600)  # N, rounds, repeats, base port
+REGRESS_BASELINES = ("committee-protocol-cuda-batched-40.txt", "bench-torch-1343-h100.json")
+SMOKES = (("telemetry_smoke", 14200), ("profile_smoke", 14828), ("watchtower_smoke", 14928))
+SMOKE_NODES, SMOKE_REPEATS = 10, 2
+PROFILE_DEVICE_SIGS = 1343
+# Each stage of profile_device, and what one of its calls launches.
+PROFILE_STAGES = {
+    "full_pipeline": {"decompress": 1, "msm_partials": 1, "msm_combine": 1, "verdict": 1},
+    "unpack": {},
+    "decompress(all)": {"decompress": 1},
+    "sqrt_pow_only": {"sqrt_pow": 1},
+    "msm": {"msm_partials": 1, "msm_combine": 1},
+    "cofactor_check": {"verdict": 1},
+    "kernelA_partials": {"msm_partials": 1},
+    "kernelB_combine": {"msm_combine": 1},
+}
+SAMPLE_PROFILE = (40, 10, 15028)  # N, rounds, base port
+DIAG_PROTOCOL = (40, 10, 15068)  # N, seconds, base port
+PROFILE_PROTOCOL = (5, 15760)  # seconds, base port
+DTRACE_SMOKE = (2, 14428)  # repeats, base port
+NETPLANE = ("1024,65536,396288", 200, 14320)  # sizes, frames, base port
+SMOKE_SUMMARY = re.compile(r'\{"metric": ".*\}')
 COMMITTEE_LINE = re.compile(
     r"committee=(?P<n>\d+) \(f=(?P<f>\d+), QC size (?P<q>\d+)\) mode=(?P<mode>\w+)"
     r"(?P<tc> tc-heavy)?(?: groups=\d+)? backend=(?P<backend>\S+) transport=(?P<transport>\w+): "
@@ -1235,6 +1310,8 @@ def kernel_checks(batch, backend, device, imad_per_s: float, uncached: bool = Tr
             rows["verdict"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                                    shape=f"ok [{m}], a, b [4, 20]")
     CHECKED_WIDTHS.add((mf, mc))
+    if uncached:
+        CHECKED_UNCACHED.add(m_u)
     notes.append(f"these checks {time.perf_counter() - t_checks:.1f} s: plain versions "
                  f"{spent['plain']:.1f} s" + (f", plain curve MSMs {spent['whole']:.1f} s"
                                              if curve_msm else ""))
@@ -4910,6 +4987,312 @@ def robust_phase(card: str, device, imad_per_s: float) -> dict:
                          "soak": soak["dispatched"]}}
 
 
+# -- phase 20: the measurement tools ---------------------------------------------
+
+
+def smoke_summary(lines: list[str], what: str) -> dict:
+    """The one JSON summary line a smoke gate prints."""
+    found = [json.loads(line) for line in lines if SMOKE_SUMMARY.fullmatch(line)]
+    check(len(found) == 1, f"{what} printed {len(found)} summary lines")
+    return found[0]
+
+
+def measure_start() -> dict:
+    """Phase 20e's two children, started together beside phases 3-5 (neither
+    makes a card call): ``dtrace_smoke`` (a real Conveyor worker against
+    three acking doubles, its acks checked on the host) and
+    ``netplane_frames`` (one edge of each transport, large frames)."""
+    repeats, dtrace_base = DTRACE_SMOKE
+    sizes, frames, net_base = NETPLANE
+    tmp = tempfile.mkdtemp(prefix="phase20e-")
+    return {"tmp": tmp, "dtrace": start_script("dtrace_smoke", [
+        "--repeats", str(repeats), "--base-port", str(dtrace_base),
+        "--work-dir", os.path.join(tmp, "dtrace")], harness_env()),
+        "netplane": start_script("netplane_frames", [
+            "--sizes", sizes, "--frames", str(frames), "--base-port", str(net_base),
+            "--json", os.path.join(tmp, "netplane.json")], harness_env())}
+
+
+def measure_cpu_phase(card: str, children: dict) -> dict:
+    """20e: waits for ``measure_start``'s children. ``dtrace_smoke`` must exit
+    0, or 2 (over its overhead budget) with the overhead printed, with no
+    problem: lifelines assembled with every data-plane edge, and the
+    ``HOTSTUFF_DTRACE=0`` leg streaming no record. ``netplane_frames`` must
+    exit 0 with a row for each size on each transport, every frame acked and
+    the native rows carrying the engine's counter deltas."""
+    tmp = children["tmp"]
+    sizes, frames, _ = NETPLANE
+    try:
+        lines, dtrace_s = finish_script(children["dtrace"], exit_codes=(0, 2))
+        dtrace = smoke_summary(lines, "dtrace_smoke")
+        check(dtrace["problems"] == [] and dtrace["batches_assembled"] > 0 and dtrace["edges"],
+              f"20e: dtrace_smoke's summary {dtrace}")
+        lines, net_s = finish_script(children["netplane"])
+        with open(os.path.join(tmp, "netplane.json")) as f:
+            rows = json.load(f)["rows"]
+        want = [(int(size), t) for size in sizes.split(",") for t in ("asyncio", "native")]
+        check([(r["size"], r["transport"]) for r in rows] == want
+              and all(r["received"] == frames for r in rows)
+              and all(r["native_delta"]["frames_rx"] > 0 for r in rows if r["transport"] == "native"),
+              f"20e: netplane_frames' rows {[(r['size'], r['transport'], r['received']) for r in rows]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"measure 20e on the host of {card}: dtrace_smoke --repeats {DTRACE_SMOKE[0]}: overhead "
+          f"{dtrace['overhead']:+.2%} (legs {dtrace['leg_overheads']}, budget {dtrace['budget']:.0%}), "
+          f"{dtrace['off_cpu_ms_per_batch']} ms CPU a batch detached, {dtrace['batches_assembled']} "
+          f"lifelines, edges (mean ms) {dtrace['edges']}; child {dtrace_s:.1f} s")
+    print(f"measure 20e on the host of {card}: netplane_frames --sizes {sizes} --frames {frames} "
+          f"(MB/s): " + ", ".join(f"{r['transport']} {r['size']} B {r['mb_per_s']:.1f}" for r in rows)
+          + f"; child {net_s:.1f} s")
+    return {"dtrace_overhead": dtrace["overhead"],
+            "netplane_mb_per_s": {f"{r['transport']}-{r['size']}": r["mb_per_s"] for r in rows}}
+
+
+def regress_check(report: dict, lines: list[str], code: int, metric: str, source: str) -> dict:
+    """The gate's one check of ``metric``: compared against the committed card
+    baseline ``source``, and a verdict line and exit code that say the
+    report's ``ok``."""
+    check(report["schema"] == "hotstuff-regress-v1" and len(report["checks"]) == 1,
+          f"regress printed {report}")
+    (chk,) = report["checks"]
+    check(chk["metric"] == metric and chk["status"] == "compared"
+          and chk["baseline_source"] == source,
+          f"regress's check of {metric}: {chk}")
+    check(chk["ok"] == (chk["fresh"] <= chk["limit"]) and report["ok"] == chk["ok"]
+          and lines[-1] == f"regression gate: {'GREEN' if chk['ok'] else 'RED'}"
+          and code == (0 if chk["ok"] else 1), f"regress's verdict {lines[-1]!r}, exit {code}")
+    return chk
+
+
+def regress_start(part: str) -> dict:
+    """20a's ``regress`` from its command line under ``cuda-batched``: the
+    protocol check alone (the committee at N = 40) or the crypto check
+    alone, its artifact in a temporary directory."""
+    n, rounds, repeats, base = REGRESS
+    args, metric, source = {
+        "protocol": (["--nodes", str(n), "--rounds", str(rounds), "--repeats", str(repeats),
+                      "--base-port", str(base), "--skip-crypto"],
+                     f"protocol_ms_per_round_n{n}", REGRESS_BASELINES[0]),
+        "crypto": (["--skip-protocol"], "crypto_cpu_batch_us_per_sig_1343sigs",
+                   REGRESS_BASELINES[1]),
+    }[part]
+    tmp = tempfile.mkdtemp(prefix="phase20a-")
+    child = start_script("regress", [*args, "--output", tmp],
+                         harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda-batched"))
+    return {**child, "part": part, "tmp": tmp, "metric": metric, "source": source,
+            "args": " ".join(args)}
+
+
+def regress_finish(card: str, child: dict) -> dict:
+    """Waits for a ``regress_start`` child. Its check must say ``compared``
+    against the committed baseline taken on the card's host, and the gate
+    must print GREEN or RED as its report says; RED is printed, not
+    required (hosts of the same card differ between calls by more than the
+    gate's 1.5x)."""
+    try:
+        lines, secs = finish_script(child, exit_codes=(0, 1))
+        with open(os.path.join(child["tmp"], "regress-gate.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(child["tmp"], ignore_errors=True)
+    chk = regress_check(report, lines, child["proc"].returncode, child["metric"], child["source"])
+    if child["part"] == "protocol":
+        check((chk["backend"], chk["transport"]) == ("cuda+superbatch", "asyncio")
+              and chk["telemetry"].get("consensus.rounds_advanced", 0) > 0,
+              f"20a: the protocol check ran {chk}")
+    print(f"measure 20a on {card}: regress {child['args']} (cuda-batched): "
+          f"{'GREEN' if chk['ok'] else 'RED'}, {child['part']} fresh {chk['fresh']} against the "
+          f"baseline {chk['baseline']} of {chk['baseline_source']} (limit {chk['limit']}): "
+          f"ratio {chk['ratio']}; child {secs:.1f} s")
+    return chk
+
+
+def smoke_streams(tmp: str, name: str) -> dict:
+    """Each telemetry stream a smoke gate left in its temporary directory
+    under ``tmp``: its ``crypto.dispatch.cuda`` from the first snapshot to
+    the last."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(tmp, f"hotstuff_{name}_*", "*.jsonl"))):
+        snaps = logs.read_telemetry_stream(path)
+        check(len(snaps) >= 1, f"{path} holds no snapshot")
+        out[os.path.basename(path)] = (snaps[-1]["counters"].get("crypto.dispatch.cuda", 0)
+                                       - snaps[0]["counters"].get("crypto.dispatch.cuda", 0))
+    return out
+
+
+def smokes_start() -> dict:
+    """20b: ``telemetry_smoke``, ``profile_smoke`` and ``watchtower_smoke`` at
+    N = 10 with 2 repeats under ``cuda-batched``, started together, each
+    leg's streams under one temporary directory (``TMPDIR``)."""
+    tmp = tempfile.mkdtemp(prefix="phase20b-")
+    env = harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda-batched", TMPDIR=tmp)
+    return {"tmp": tmp, "children": {name: start_script(name, [
+        "--nodes", str(SMOKE_NODES), "--repeats", str(SMOKE_REPEATS), "--base-port", str(base)],
+        env) for name, base in SMOKES}}
+
+
+def smokes_finish(card: str, started: dict) -> dict:
+    """Waits for ``smokes_start``'s children. Each must exit 0, or 2 (over
+    its overhead budget, which stays as it is) with its overhead printed,
+    and each telemetry stream it wrote must show ``crypto.dispatch.cuda``
+    moving."""
+    out = {}
+    try:
+        for name, child in started["children"].items():
+            lines, secs = finish_script(child, exit_codes=(0, 2))
+            summary = smoke_summary(lines, name)
+            problems = summary.get("schema_problems", summary.get("problems"))
+            check(problems == [], f"20b: {name}'s problems {problems}")
+            moved = smoke_streams(started["tmp"], name)
+            check(moved and all(v > 0 for v in moved.values()),
+                  f"20b: {name}'s streams' crypto.dispatch.cuda {moved}")
+            over = summary["overhead"] > summary["budget"]
+            check(child["proc"].returncode == (2 if over else 0),
+                  f"20b: {name} exited {child['proc'].returncode} at overhead {summary['overhead']}")
+            out[name] = summary
+            print(f"measure 20b on {card}: {name} --nodes {SMOKE_NODES} --repeats {SMOKE_REPEATS} "
+                  f"(cuda-batched): {'OVER' if over else 'within'} budget {summary['budget']:.0%}: "
+                  f"overhead {summary['overhead']:+.2%} ({summary['off_ms_per_round']} ms a round "
+                  f"off, {summary['on_ms_per_round']} on); crypto.dispatch.cuda by stream "
+                  f"{sorted(moved.values())}; child {secs:.1f} s")
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    return out
+
+
+def measure_device(card: str, device, imad_per_s: float) -> tuple[dict, dict, dict]:
+    """20c: ``profile_device`` at the bench's width in this process, the
+    counts zeroed before and read after: every stage's row printed, and each
+    stage's calls (2 warm-ups and 3 rounds of 16) launching the kernels it
+    names and no other. Then the root alone against its plain version at
+    the profile's width (K4 and K3 were held at it in phase 14). Returns
+    (the launches, the stage times, the kernels' rows)."""
+    buf, inputs = io.StringIO(), {}
+    real_calls = profile_device.stage_calls
+
+    def stage_calls(dev_packed):  # keeps each stage's inputs for the checks below
+        inputs.update(real_calls(dev_packed))
+        return inputs
+
+    profile_device.stage_calls = stage_calls
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            stages = profile_device.main([str(PROFILE_DEVICE_SIGS)])
+        launches = launch_counts()
+    finally:
+        profile_device.stage_calls = real_calls
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    calls = profile_device.WARMUP + profile_device.ROUNDS * profile_device.ITERS
+    check(list(stages) == list(PROFILE_STAGES), f"profile_device timed {list(stages)}")
+    for name, want in PROFILE_STAGES.items():
+        check(any(line.startswith(f"{name:18s} ") and line.endswith(" us/sig") for line in lines),
+              f"profile_device printed no row for {name}")
+        got = stages[name]["launches"]
+        check(got == {k: c * calls for k, c in want.items()},
+              f"20c: {name} launched {got} in {calls} calls, expected {want} a call")
+    print(f"measure 20c on {card}: profile_device {PROFILE_DEVICE_SIGS} in this process: every "
+          f"stage's {calls} calls launched what it names; launches "
+          + ", ".join(f"{k} {v}" for k, v in sorted(launches.items()) if v))
+
+    # The root alone at the profile's lanes, a width no earlier phase gives
+    # it; phase 14 held K4 and K3 at the same batch's lanes.
+    u, v = inputs["sqrt_pow_only"][1]
+    m = u.shape[0]
+    check(m in CHECKED_UNCACHED, f"20c: no earlier phase held K4 and K3 at m={m}")
+    r_k = mk.sqrt_pow(u, v)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r_p = mk.sqrt_pow_plain(u, v)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    err = max_abs_err(r_k, r_p)
+    check(err == 0, f"20c: sqrt_pow [{m}, 20] differs from its plain version by {err}")
+    b, by = bound_ms(MULS_SQRT_POW * m, 3 * m * 80, imad_per_s)
+    ms, ev, pr = kernel_ms(lambda: mk.sqrt_pow(u, v), 20, PROFILER_NAMES["sqrt_pow"])
+    rows = {"sqrt_pow": dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                             shape=f"u, v [{m}, 20]")}
+    print(f"measure 20c: sqrt_pow u, v [{m}, 20] limb-exact against its plain version; "
+          f"{ms:.4f} ms (events {ev:.4f}, profiler {pr:.4f}; plain {plain:.1f} ms, bound "
+          f"{b:.4f} ms); K4 and K3 at m={m} were held in phase 14")
+    return launches, stages, rows
+
+
+def profilers_start() -> dict:
+    """20d: ``sample_profile --by-stage``, ``diag_protocol`` and
+    ``profile_protocol`` under ``cuda-batched``, started together, each cut
+    from the reference's defaults (10 rounds of 15, 10 s of 60, 5 s of 20)."""
+    n, rounds, sample_base = SAMPLE_PROFILE
+    dn, seconds, diag_base = DIAG_PROTOCOL
+    prof_s, prof_base = PROFILE_PROTOCOL
+    env = harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda-batched")
+    return {
+        "sample_profile": start_script("sample_profile", [
+            "--nodes", str(n), "--rounds", str(rounds), "--by-stage", "--base-port",
+            str(sample_base)], env),
+        "diag_protocol": start_script("diag_protocol", [
+            "--nodes", str(dn), "--seconds", str(seconds), "--base-port", str(diag_base)], env),
+        "profile_protocol": start_script("profile_protocol", [
+            "--seconds", str(prof_s), "--base-port", str(prof_base)], env),
+    }
+
+
+def profilers_finish(card: str, children: dict) -> dict:
+    """Waits for ``profilers_start``'s children: each must exit 0 and print
+    its table (``diag_protocol`` a progress line each 5 s)."""
+    n, rounds, _ = SAMPLE_PROFILE
+    dn, seconds, _ = DIAG_PROTOCOL
+    prof_s, _ = PROFILE_PROTOCOL
+    lines, secs = finish_script(children["sample_profile"])
+    head = [line for line in lines if line.startswith(f"committee={n} protocol: ")]
+    check(len(head) == 1 and "samples by round-trace stage:" in lines
+          and any(line.startswith(" SELF%   CUM%") for line in lines),
+          "20d: sample_profile printed no result and tables")
+    stage_rows = lines[lines.index("samples by round-trace stage:") + 1:]
+    stage_rows = stage_rows[:next(i for i, line in enumerate(stage_rows) if not line.strip())]
+    print(f"measure 20d on {card}: sample_profile --nodes {n} --rounds {rounds} --by-stage "
+          f"(cuda-batched): {head[0]}; stages {[' '.join(r.split()) for r in stage_rows]}; "
+          f"child {secs:.1f} s")
+    lines, secs = finish_script(children["diag_protocol"])
+    progress = [line for line in lines if line.startswith("t=")]
+    # Its committee's commits are printed, not required: a round-1 leader
+    # that is not listening yet holds the committee for the 30 s timeout,
+    # longer than the cut window (the reference's boot race).
+    check(lines[0].startswith(f"spawned {dn} engines") and len(progress) == -(-seconds // 5),
+          "20d: diag_protocol printed no progress")
+    print(f"measure 20d on {card}: diag_protocol --nodes {dn} --seconds {seconds} "
+          f"(cuda-batched): {progress[-1]}; child {secs:.1f} s")
+    lines, secs = finish_script(children["profile_protocol"])
+    header = [i for i, line in enumerate(lines) if line.split()[:2] == ["ncalls", "tottime"]]
+    check(header and any("function calls" in line for line in lines),
+          "20d: profile_protocol printed no pstats table")
+    total = next(line for line in lines if "function calls" in line).strip()
+    print(f"measure 20d on {card}: profile_protocol --seconds {prof_s} (cuda-batched): {total}; "
+          f"child {secs:.1f} s")
+    return {"sample_profile": head[0]}
+
+
+def measure_phase(card: str, device, imad_per_s: float) -> dict:
+    """Phase 20: the port's measurement tools, a-d (e ran beside phases 3-5).
+    The gate's protocol check runs alone (its baseline was taken alone);
+    then b, d and the gate's crypto check together (each leg's overhead is
+    a min over its own alternating legs, d's figures are diagnostics); then
+    c alone, since its stage times are the card's."""
+    t = time.perf_counter()
+    regress = {"protocol": regress_finish(card, regress_start("protocol"))}
+    smokes, crypto_check, profilers = smokes_start(), regress_start("crypto"), profilers_start()
+    smoke_summaries = smokes_finish(card, smokes)
+    regress["crypto"] = regress_finish(card, crypto_check)
+    profilers_finish(card, profilers)
+    print(f"measure: phase 20a-b, d in {time.perf_counter() - t:.1f} s")
+    device_launches, stages, device_rows = measure_device(card, device, imad_per_s)
+    print(f"measure: phase 20 in {time.perf_counter() - t:.1f} s")
+    return {"regress": regress, "smokes": smoke_summaries, "profile_device": device_launches,
+            "stages": stages, "profile_device_rows": device_rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4969,6 +5352,8 @@ def main() -> int:
     # 17c's two children run on the host's other cores beside phases 3-5,
     # which check the kernels on the card from this one thread.
     sim_children = sim_start()
+    # 20e's two children (no card call) beside them too.
+    measure_children = measure_start()
 
     # 3. the main path. Phases 3 to 7 run with the process-wide cert arena
     # off, so that a repeated verify of one QC pays the verify it is
@@ -5007,6 +5392,8 @@ def main() -> int:
     stamp("phases 3-5")
     sim = sim_phase(card, sim_children)
     stamp("phase 17c")
+    measure_cpu_phase(card, measure_children)
+    stamp("phase 20e")
 
     # 6. warm QC timing
     wall, host, span = qc_timing(qcs, committee, backend, device, reps=3)
@@ -5161,6 +5548,14 @@ def main() -> int:
     robust = robust_phase(card, device, imad_per_s)
     stamp("phase 19")
 
+    # 20. the measurement tools: the regression gate against the card's
+    # baselines, the three smoke gates, the device profile of a QC batch
+    # (the root alone's path) and the protocol profilers
+    measure = measure_phase(card, device, imad_per_s)
+    # profile_device's sqrt_pow_only stage is the root alone's one path.
+    launches["sqrt_pow"] = measure["profile_device"]["sqrt_pow"]
+    stamp("phase 20")
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict", "verdict_tree"):
@@ -5188,6 +5583,7 @@ def main() -> int:
             **{f"launches_harness_{part}": harness[part][name]
                for part in ("crypto", "digest", "superbatch")},
             "launches_harness_fault_matrix": robust["fault_matrix"][name],
+            "launches_profile_device": measure["profile_device"][name],
         }
         if name == "verdict":
             entry["harness_dispatch_cuda"] = {"protocol": harness["protocol_dispatched"],
@@ -5203,7 +5599,8 @@ def main() -> int:
                 ("bench", bench_rows, name), ("bench_uncached", bench_rows, f"{name}_uncached"),
                 ("harness_crypto", harness["crypto_rows"], name),
                 ("harness_superbatch", harness["superbatch_rows"], name),
-                ("harness_fault_matrix", robust["fault_matrix_rows"], name)):
+                ("harness_fault_matrix", robust["fault_matrix_rows"], name),
+                ("profile_device", measure["profile_device_rows"], name)):
             row_x = extra.get(row_name)
             if row_x is not None:
                 width = (f"{prefix} flush" if prefix in ("fused", "widest")
@@ -5233,6 +5630,7 @@ def main() -> int:
         **{f"launches_harness_{part}": harness[part]["sha512"]
            for part in ("crypto", "digest", "superbatch")},
         "launches_harness_fault_matrix": robust["fault_matrix"]["sha512"],
+        "launches_profile_device": measure["profile_device"]["sha512"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

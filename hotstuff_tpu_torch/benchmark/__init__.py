@@ -8,9 +8,14 @@ node processes); the data plane's ``dataplane_sweep`` (the Conveyor rate
 sweep and its gate), ``fleet_bench`` (the open-loop fleet) and
 ``dtrace_assemble`` (per-batch lifelines); the robustness harness's
 ``fault_matrix``, ``soak``, ``detector_bench``, ``sim_sweep`` and
-``detector_sweep``; and what they use: ``hostinfo``, ``logs``
-(``LogParser``, ``TelemetryParser`` and the stream readers),
-``trace_assemble``, ``profile_assemble`` and ``watchtower``. Each keeps the
+``detector_sweep``; the measurement tools ``regress`` (the
+perf-regression gate), the smoke gates ``telemetry_smoke``,
+``profile_smoke``, ``watchtower_smoke`` and ``dtrace_smoke``, the profilers
+``profile_device``, ``sample_profile``, ``profile_protocol`` and
+``diag_protocol``, ``netplane_frames`` and ``aggregate``; and what they use:
+``hostinfo``, ``logs`` (``LogParser``, ``TelemetryParser`` and the stream
+readers), ``trace_assemble``, ``profile_assemble``, ``watchtower`` and
+``utils``. Each keeps the
 reference's flags,
 printed lines and result-file names, runs on the card unless ``cpu`` is
 named (the sim-plane sweeps run under ``cpu``, which they set), and imports

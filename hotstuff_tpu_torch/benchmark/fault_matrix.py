@@ -196,10 +196,9 @@ def main(argv=None) -> None:
         json.dump(run_plane(args), sys.stdout)
         return
 
-    if "cuda" in os.environ.get("HOTSTUFF_CRYPTO_BACKEND", "cuda"):
-        from hotstuff_tpu_torch.utils.device import resolve
+    from hotstuff_tpu_torch.utils.device import resolve_backend_card
 
-        resolve("cuda")  # raises without a card, before any child starts
+    resolve_backend_card()  # raises without a card, before any child starts
 
     report: dict = {"nodes": args.nodes, "host": host_meta(), "planes": {}}
     ok = True

@@ -17,3 +17,13 @@ def resolve(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain versions"
         )
     return dev
+
+
+def resolve_backend_card() -> None:
+    """Raise without a card when ``HOTSTUFF_CRYPTO_BACKEND`` names a ``cuda``
+    backend (unset, it is ``cuda``): a harness calls it before it starts a
+    committee or a child, so that nothing binds or spawns first."""
+    import os
+
+    if "cuda" in os.environ.get("HOTSTUFF_CRYPTO_BACKEND", "cuda"):
+        resolve("cuda")

@@ -18,9 +18,12 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
-#: the data-plane and robustness harness scripts.
+#: the data-plane and robustness harness scripts, and the measurement tools.
 HARNESS_SCRIPTS = ("dtrace_assemble", "dataplane_sweep", "fleet_bench", "fault_matrix", "soak",
-                   "detector_bench", "sim_sweep", "detector_sweep")
+                   "detector_bench", "sim_sweep", "detector_sweep", "regress",
+                   "telemetry_smoke", "profile_smoke", "watchtower_smoke", "dtrace_smoke",
+                   "profile_device", "sample_profile", "profile_protocol", "diag_protocol",
+                   "netplane_frames", "aggregate", "utils")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -41,7 +44,7 @@ from hotstuff_tpu_torch import crypto
 from hotstuff_tpu_torch.crypto.cuda_backend import CudaBackend
 from hotstuff_tpu_torch.ops import sha512, verify
 from hotstuff_tpu_torch.parallel import make_mesh
-from hotstuff_tpu_torch.benchmark import committee_scale, digest_bench, superbatch_bench
+from hotstuff_tpu_torch.benchmark import committee_scale, digest_bench, profile_device, superbatch_bench
 raised = {}
 if not torch.cuda.is_available():
     for what, call in [
@@ -57,6 +60,7 @@ if not torch.cuda.is_available():
         ("run_crypto_rounds", lambda: committee_scale.run_crypto_rounds(4, 1, False)),
         ("digest_bench.bench", lambda: digest_bench.bench(1, 8)),
         ("superbatch_bench.main", lambda: superbatch_bench.main([])),
+        ("profile_device.main", lambda: profile_device.main(["4"])),
     ]:
         try:
             call()
@@ -110,7 +114,7 @@ def test_port_imports_no_jax_and_no_reference_module():
         assert f"hotstuff_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
     if not result["cuda"]:
-        assert len(result["raised"]) == 12
+        assert len(result["raised"]) == 13
         for what, message in result["raised"].items():
             assert message is not None and "CUDA" in message, what
 
@@ -196,6 +200,18 @@ CARD_RUNS = {
               "--output", "{tmp}/out"], "soak verdict"),
     "detector_bench": (["--seeds", "3", "--controls", "0", "--duration", "1",
                         "--base-port", "24800", "--output", "{tmp}/out"], "detector bench"),
+    "regress": (["--nodes", "4", "--rounds", "2", "--repeats", "1", "--base-port", "24800",
+                 "--output", "{tmp}/out"], "hotstuff-regress-v1"),
+    "telemetry_smoke": (["--nodes", "4", "--rounds", "2", "--repeats", "1", "--base-port",
+                         "24800", "--output", "{tmp}/out"], '{"metric"'),
+    "profile_smoke": (["--nodes", "4", "--rounds", "2", "--repeats", "1", "--base-port",
+                       "24800", "--output", "{tmp}/out"], '{"metric"'),
+    "watchtower_smoke": (["--nodes", "4", "--rounds", "2", "--repeats", "1", "--base-port",
+                          "24800", "--output", "{tmp}/out"], '{"metric"'),
+    "profile_device": (["8"], "ms/batch"),
+    "sample_profile": (["--nodes", "4", "--rounds", "2", "--base-port", "24800"], "SELF%"),
+    "profile_protocol": (["--seconds", "1", "--base-port", "24800"], "function calls"),
+    "diag_protocol": (["--nodes", "4", "--seconds", "1", "--base-port", "24800"], "spawned"),
 }
 
 
