@@ -521,6 +521,21 @@ unguarded (any failure ends the run with a non-zero exit):
       card call, started beside phases 3-5 with 17c's children: the lifeline
       smoke exits 0 or 2 with no problem; every frame of every row acked, the
       native rows with the engine's counter deltas.
+21. the README's crash-fault quick start through the port's CLI, ``fabfile
+   local --nodes 4 --faults 1 --rate 600 --duration 5 --save`` (5 s of the
+   README's 20, a cut), from its command line as phase 18 runs its scripts
+   but in a temporary working directory (its ``.bench``, ``results/`` and
+   ``plots/``), with ``HOTSTUFF_CRYPTO_BACKEND=cuda`` and the node streams'
+   ``HOTSTUFF_TELEMETRY_DIR`` passed to it (``LocalBench``'s ports
+   9000-9011): the SUMMARY says 4 nodes with 1 faulty and consensus TPS
+   above 0; exactly three node streams, each with ``crypto.dispatch.cuda``
+   above 0 (the faulty fourth node is never booted); the result file
+   ``results/bench-1-4-600-512.txt`` holds the printed SUMMARY. Then on the
+   host ``fabfile logs --dir .bench/logs --faults 1`` prints the same
+   SUMMARY from the same logs, and ``fabfile aggregate`` writes the series
+   ``plots/agg-l-1-4-x-512.txt`` with the run's one rate. ``plot`` is not
+   run here (the host may lack matplotlib); it, ``remote``, ``instance`` and
+   ``netns`` reach no card and are held on the CPU only.
 
 The last two lines are a JSON object per kernel (``{"kernels": [...]}``;
 ``launches`` from phase 3 (``sha512``'s too, counted there like the
@@ -549,11 +564,11 @@ and ``_faultline`` from phase 16's parts a-d; ``launches_groups_n100`` and
 first; ``launches_harness_fault_matrix`` from 19d's ``run_plane`` in this
 process and the ``harness_fault_matrix_*`` keys at the widest width it held
 first; and on the verdict's row ``harness_dispatch_cuda``, the
-``crypto.dispatch.cuda`` that 18b's, 18e's, 19a's, 19b's and 19c's node
-processes streamed; ``launches_profile_device`` from phase 20c in this
-process, which is also ``sqrt_pow``'s ``launches``, since its root-alone
-stage is the only path that reaches it, and the ``profile_device_*`` keys at
-the widths 20c held first)
+``crypto.dispatch.cuda`` that 18b's, 18e's, 19a's, 19b's, 19c's and 21's
+node processes streamed (21's under ``fabfile_local``);
+``launches_profile_device`` from phase 20c in this process, which is also
+``sqrt_pow``'s ``launches``, since its root-alone stage is the only path that
+reaches it, and the ``profile_device_*`` keys at the widths 20c held first)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -954,6 +969,13 @@ DIAG_PROTOCOL = (40, 10, 15068)  # N, seconds, base port
 PROFILE_PROTOCOL = (5, 15760)  # seconds, base port
 DTRACE_SMOKE = (2, 14428)  # repeats, base port
 NETPLANE = ("1024,65536,396288", 200, 14320)  # sizes, frames, base port
+# Phase 21: the README's crash-fault quick start through the port's CLI,
+# ``fabfile local --nodes 4 --faults 1 --rate 600 --duration 5 --save`` (5 s
+# of the README's 20, a cut), in a working directory of its own. ``local``
+# has no ``--base-port``: ``LocalBench``'s 9000-9011 (three blocks of four),
+# kept 9000-9015, below the H100 host's ephemeral range and clear of phases
+# 9-20.
+FABFILE_LOCAL = (4, 1, 600, 5)  # nodes, faults, tx/s, seconds
 SMOKE_SUMMARY = re.compile(r'\{"metric": ".*\}')
 COMMITTEE_LINE = re.compile(
     r"committee=(?P<n>\d+) \(f=(?P<f>\d+), QC size (?P<q>\d+)\) mode=(?P<mode>\w+)"
@@ -4423,13 +4445,13 @@ STARTED: list[subprocess.Popen] = []
 atexit.register(lambda: [kill_session(proc) for proc in STARTED])
 
 
-def start_script(module: str, args: list[str], env: dict) -> dict:
+def start_script(module: str, args: list[str], env: dict, cwd: str = REPO) -> dict:
     """``python -m hotstuff_tpu_torch.benchmark.<module> args`` as a user
-    types it, started in a session of its own with its standard output in
-    a temporary file; ``finish_script`` waits for it."""
+    types it in ``cwd``, started in a session of its own with its standard
+    output in a temporary file; ``finish_script`` waits for it."""
     out = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, "-m", f"hotstuff_tpu_torch.benchmark.{module}", *args],
-                            stdout=out, text=True, env=env, cwd=REPO, start_new_session=True)
+                            stdout=out, text=True, env=env, cwd=cwd, start_new_session=True)
     STARTED.append(proc)
     return {"proc": proc, "out": out, "what": f"{module} {' '.join(args)}",
             "t": time.perf_counter()}
@@ -4460,9 +4482,9 @@ def finish_script(child: dict, exit_codes: tuple[int, ...] = (0,)) -> tuple[list
 
 
 def run_script(module: str, args: list[str], env: dict,
-               exit_codes: tuple[int, ...] = (0,)) -> tuple[list[str], float]:
+               exit_codes: tuple[int, ...] = (0,), cwd: str = REPO) -> tuple[list[str], float]:
     """``start_script``, then ``finish_script``."""
-    return finish_script(start_script(module, args, env), exit_codes)
+    return finish_script(start_script(module, args, env, cwd), exit_codes)
 
 
 def committee_line(lines: list[str], n: int, mode: str, tc_heavy: bool) -> re.Match:
@@ -5293,6 +5315,91 @@ def measure_phase(card: str, device, imad_per_s: float) -> dict:
             "stages": stages, "profile_device_rows": device_rows}
 
 
+# -- phase 21: the README's quick start through the port's fabfile -------------
+
+
+def summary_block(lines: list[str]) -> list[str]:
+    """The SUMMARY block among a script's printed ``lines``: from the dashes
+    above its ``SUMMARY:`` line to the dashes that close it."""
+    top = lines.index(" SUMMARY:") - 1
+    end = next(i for i in range(top + 3, len(lines)) if lines[i].startswith("-----"))
+    return lines[top:end + 1]
+
+
+def fabfile_phase(card: str) -> dict:
+    """Phase 21: ``fabfile local`` as the README gives it for crash faults,
+    under ``cuda``, in a temporary working directory (its ``.bench``,
+    ``results/`` and ``plots/``), with the node streams in a directory of
+    their own; then the host tasks ``fabfile logs`` and ``fabfile
+    aggregate`` on what it left. Returns each node stream's
+    ``crypto.dispatch.cuda``."""
+    nodes, faults, rate, duration = FABFILE_LOCAL
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase21-")
+    streams = os.path.join(tmp, "streams")
+    os.makedirs(streams)
+    try:
+        lines, secs = run_script("fabfile", [
+            "local", "--nodes", str(nodes), "--faults", str(faults), "--rate", str(rate),
+            "--duration", str(duration), "--save"],
+            harness_env(HOTSTUFF_CRYPTO_BACKEND="cuda", HOTSTUFF_TELEMETRY_DIR=streams,
+                        HOTSTUFF_TELEMETRY_INTERVAL="1", PYTHONPATH=REPO), cwd=tmp)
+        block = summary_block(lines)
+        check(f" Faults: {faults} nodes" in block and f" Committee size: {nodes} nodes" in block,
+              f"21: the SUMMARY does not say {nodes} nodes with {faults} faulty")
+        summary = {}
+        for line in block:
+            m = SUMMARY_FIGURE.fullmatch(line)
+            if m:
+                summary[m["what"]] = float(m["value"].replace(",", ""))
+        check(summary.get("Consensus TPS", 0) > 0, "21 committed nothing")
+        dispatched = stream_dispatch(streams)
+        check(len(dispatched) == nodes - faults and all(dispatched.values()),
+              f"21: crypto.dispatch.cuda by node stream {dispatched} (the faulty node never boots)")
+        rounds = []  # each node stream's view changes, for the SUMMARY's latency
+        for path in sorted(glob.glob(os.path.join(streams, "telemetry-*.jsonl"))):
+            counters = logs.read_telemetry_stream(path)[-1]["counters"]
+            rounds.append("/".join(str(counters.get(f"consensus.{name}", 0)) for name in (
+                "rounds_advanced", "timeouts_fired", "tcs_formed", "qcs_formed",
+                "blocks_committed")))
+        saved = os.path.join(tmp, "results", f"bench-{faults}-{nodes}-{rate}-512.txt")
+        check(os.path.isfile(saved), f"21 saved no {saved}")
+        with open(saved) as f:
+            check(summary_block(f.read().splitlines()) == block,
+                  f"{saved} does not hold the SUMMARY")
+        # The host tasks, together, on the same logs and results.
+        host_env = harness_env(PYTHONPATH=REPO)
+        logs_child = start_script(
+            "fabfile", ["logs", "--dir", ".bench/logs", "--faults", str(faults)], host_env, tmp)
+        agg_child = start_script("fabfile", ["aggregate"], host_env, tmp)
+        logs_lines, logs_secs = finish_script(logs_child)
+        check(summary_block(logs_lines) == block,
+              "21: fabfile logs printed another SUMMARY from the same logs")
+        agg_lines, agg_secs = finish_script(agg_child)
+        series = os.path.join(tmp, "plots", f"agg-l-{faults}-{nodes}-x-512.txt")
+        check(f"wrote plots/agg-l-{faults}-{nodes}-x-512.txt" in agg_lines,
+              "21: fabfile aggregate wrote no series")
+        with open(series) as f:
+            rows = f.read().splitlines()
+        check(rows[0] == "rate tps tps_std latency latency_std"
+              and [row.split()[0] for row in rows[1:]] == [str(rate)],
+              f"21: the aggregated series is {rows}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"fabfile 21 on {card}: fabfile local --nodes {nodes} --faults {faults} --rate {rate} "
+          f"--duration {duration} --save under cuda (the README's crash-fault quick start, "
+          f"{nodes - faults} node and client processes): consensus "
+          f"{summary['Consensus TPS']:.0f} tx/s, latency {summary['Consensus latency']:.0f} ms; "
+          f"end-to-end {summary['End-to-end TPS']:.0f} tx/s, latency "
+          f"{summary['End-to-end latency']:.0f} ms; crypto.dispatch.cuda by node "
+          f"{sorted(dispatched.values())}; rounds advanced / timeouts fired / TCs / QCs formed / "
+          f"blocks committed by node {sorted(rounds)}; run {secs:.1f} s, fabfile logs "
+          f"{logs_secs:.1f} s (the same SUMMARY) beside fabfile aggregate {agg_secs:.1f} s "
+          f"({rows[1]})")
+    print(f"fabfile: phase 21 in {time.perf_counter() - t:.1f} s")
+    return dispatched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5556,6 +5663,11 @@ def main() -> int:
     launches["sqrt_pow"] = measure["profile_device"]["sqrt_pow"]
     stamp("phase 20")
 
+    # 21. the README's crash-fault quick start through the port's fabfile,
+    # then its host tasks on the same logs and results
+    fabfile_dispatched = fabfile_phase(card)
+    stamp("phase 21")
+
     kernels = []
     for name in ("decompress", "sqrt_pow", "msm_partials_signed", "msm_combine", "msm_partials",
                  "verdict", "verdict_tree"):
@@ -5588,7 +5700,8 @@ def main() -> int:
         if name == "verdict":
             entry["harness_dispatch_cuda"] = {"protocol": harness["protocol_dispatched"],
                                               "local": harness["local_dispatched"],
-                                              **robust["dispatch"]}
+                                              **robust["dispatch"],
+                                              "fabfile_local": sum(fabfile_dispatched.values())}
         if name == "verdict_tree":
             entry["sharded_ms_per_qc"] = {str(d): t for d, t in sharded["times"].items()}
             entry["unsharded_ms_per_qc"] = sharded["unsharded"]

@@ -11,8 +11,8 @@ mean ± stdev over the runs and emits series:
 Port copy of the reference's ``benchmark/aggregate.py``, unchanged but for
 its import of the port's ``utils.PathMaker``: the same SUMMARY parsing, the
 same series and the same ``agg-l-*.txt`` files from the same result files
-(``bench-*.txt``, as ``run_local`` and ``local`` write them). The
-reference's ``plot.py`` (matplotlib) has no port.
+(``bench-*.txt``, as ``run_local`` and ``local`` write them). The port's
+``plot.Ploter`` draws these series.
 """
 
 from __future__ import annotations

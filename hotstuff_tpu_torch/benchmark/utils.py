@@ -3,7 +3,8 @@ file-naming conventions, colored printing, progress.
 
 Port copy of the reference's ``benchmark/utils.py``, unchanged: the same
 ``PathMaker`` names (``results/bench-<faults>-<nodes>-<rate>-<size>.txt``,
-``plots/agg-...``), ``Print`` and ``progress_bar``. ``aggregate`` uses it.
+``plots/agg-...``), ``Print`` and ``progress_bar``. ``aggregate``, ``plot``,
+``fabfile``, ``remote`` and ``instance`` use it.
 """
 
 from __future__ import annotations

@@ -18,12 +18,14 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
-#: the data-plane and robustness harness scripts, and the measurement tools.
+#: the data-plane and robustness harness scripts, the measurement tools, and
+#: the remote testbed harness with its CLI and plots.
 HARNESS_SCRIPTS = ("dtrace_assemble", "dataplane_sweep", "fleet_bench", "fault_matrix", "soak",
                    "detector_bench", "sim_sweep", "detector_sweep", "regress",
                    "telemetry_smoke", "profile_smoke", "watchtower_smoke", "dtrace_smoke",
                    "profile_device", "sample_profile", "profile_protocol", "diag_protocol",
-                   "netplane_frames", "aggregate", "utils")
+                   "netplane_frames", "aggregate", "utils", "settings", "instance", "remote",
+                   "netns", "plot", "fabfile")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -232,3 +234,21 @@ def test_card_harness_script_exits_nonzero_without_a_card(tmp_path, script):
     assert "CUDA" in out.stderr, out.stderr[-2000:]
     assert result not in out.stdout
     assert not (tmp_path / "out").exists() and not (tmp_path / "bench").exists()
+
+
+def test_fabfile_local_exits_nonzero_without_a_card(tmp_path):
+    """The README's quick start, run as a user types it in a directory of
+    their own with no ``HOTSTUFF_*`` switch and no card, raises before it
+    starts a process, names CUDA, prints no SUMMARY and writes nothing: the
+    nodes would verify under ``cuda``. Ports: none bound."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HOTSTUFF_")}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, also on a GPU host
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "hotstuff_tpu_torch.benchmark.fabfile", "local", "--nodes", "4",
+         "--faults", "1", "--rate", "600", "--duration", "1", "--save"],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path, env=env)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr, out.stderr[-2000:]
+    assert "SUMMARY" not in out.stdout
+    assert list(tmp_path.iterdir()) == []
