@@ -4,7 +4,9 @@ port.
 Port copy of the reference's ``benchmark/committee_scale.py``, every mode
 and flag, over the port's consensus, crypto, store, faultline, engine
 groups, network and telemetry. Its flags, printed lines and result-file
-names are the reference's. The backend is the port's
+names are the reference's, but ``--profile``'s table, which bills the
+certificate path's stage spans (``telemetry/stages.py``) beside the core's
+handler stages. The backend is the port's
 (``HOTSTUFF_CRYPTO_BACKEND``: ``cuda``, the default, ``cuda-batched``,
 ``cpu``, ``cpu-batched``), so a run that does not name ``cpu`` runs on the
 card and raises without one. ``--mode crypto`` calls ``Block.verify``
@@ -65,9 +67,12 @@ async def run_committee(
     """Returns ``(seconds_per_round, stage_profile | None)`` where the
     stage profile — measured-window deltas of the registry's
     ``consensus.stage.<kind>.{ns,calls}`` counters — covers EVERY
-    engine's core (the whole committee's per-round handler cost)."""
+    engine's core (the whole committee's per-round handler cost), and
+    the certificate path's stage spans (``crypto.*``, ``consensus.decode``)
+    under their names."""
     from hotstuff_tpu_torch import telemetry
     from hotstuff_tpu_torch.consensus import Authority, Committee, Consensus, Parameters
+    from hotstuff_tpu_torch.telemetry import stages
     from hotstuff_tpu_torch.crypto import SignatureService, generate_keypair
     from hotstuff_tpu_torch.store import Store
 
@@ -147,10 +152,18 @@ async def run_committee(
         emitter.spawn()
     registry = telemetry.get_registry()
     warmup = registry.snapshot()["counters"] if profile else None
+    if profile:
+        # The certificate path's own stages (telemetry/stages.py) bill
+        # beside the handlers, under their span names.
+        stages.arm()
     t0 = time.perf_counter()
-    for _ in range(rounds_target):
-        await asyncio.gather(*[q.get() for q in commits])
-    elapsed = time.perf_counter() - t0
+    try:
+        for _ in range(rounds_target):
+            await asyncio.gather(*[q.get() for q in commits])
+        elapsed = time.perf_counter() - t0
+    finally:
+        if profile:
+            stages.disarm()
 
     stage_profile: dict[str, tuple[int, int]] | None = None
     if profile:
@@ -159,9 +172,12 @@ async def run_committee(
         stage_profile = {}
         prefix = "consensus.stage."
         for name, value in deltas.items():
-            if not name.startswith(prefix):
+            if name.startswith(prefix):
+                kind, field = name[len(prefix):].rsplit(".", 1)
+            elif name.rsplit(".", 1)[0] in stages.NESTING:
+                kind, field = name.rsplit(".", 1)
+            else:
                 continue
-            kind, field = name[len(prefix):].rsplit(".", 1)
             ns, calls = stage_profile.get(kind, (0, 0))
             if field == "ns":
                 ns += value
@@ -396,7 +412,9 @@ def main() -> None:
         help="protocol mode: print per-stage µs/round (aggregated over "
         "every engine's core — the whole committee's per-round handler "
         "cost on this core; sourced from the telemetry registry's "
-        "consensus.stage.* counters)",
+        "consensus.stage.* counters), with the certificate path's "
+        "stage spans (telemetry/stages.py) armed over the window and "
+        "billed beside them",
     )
     p.add_argument(
         "--telemetry",
@@ -581,14 +599,15 @@ def main() -> None:
             f"per-stage handler cost (all {args.nodes} engines, "
             f"{args.rounds} measured rounds, telemetry registry):"
         )
+        width = max(10, *map(len, stage_profile))
         profile_lines.append(
-            f"  {'stage':<10} {'calls/round':>12} {'us/round':>12}"
+            f"  {'stage':<{width}} {'calls/round':>12} {'us/round':>12}"
         )
         for kind, (ns, calls) in sorted(
             stage_profile.items(), key=lambda kv: -kv[1][0]
         ):
             profile_lines.append(
-                f"  {kind:<10} {calls / args.rounds:>12.1f} "
+                f"  {kind:<{width}} {calls / args.rounds:>12.1f} "
                 f"{ns / 1e3 / args.rounds:>12.1f}"
             )
         print("\n".join(profile_lines))

@@ -2,7 +2,10 @@
 
 Port copy of ``hotstuff_tpu/consensus/crypto_bridge.py``, with its
 profiler tagging (a worker thread's verification samples under the
-``verify`` stage). The Core's select loop must never block on signature
+``verify`` stage) and, when ``telemetry.stages`` is armed, the spans
+``crypto.bridge.queue`` (submission until a worker starts the job) and
+``crypto.bridge.resume`` (the worker's return until the awaiting task
+resumes). The Core's select loop must never block on signature
 verification: a QC verification is a batch crypto call that, on the CUDA
 backend, involves a host-to-card round trip. The bridge runs verifications
 on a small worker pool and the Core awaits them, so network handling,
@@ -20,9 +23,11 @@ from __future__ import annotations
 
 import asyncio
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 from hotstuff_tpu_torch.telemetry import profiler as pyprof
+from hotstuff_tpu_torch.telemetry import stages
 
 _EXECUTOR: ThreadPoolExecutor | None = None
 
@@ -71,13 +76,28 @@ async def verify_off_loop(verify_fn, *args, n_sigs: int = 1):
     if not _backend_blocks() and n_sigs < INLINE_SIG_LIMIT:
         return verify_fn(*args)
     loop = asyncio.get_running_loop()
-    if pyprof.TAGGING:
-        # The verification runs on a crypto worker thread; tag that
-        # thread for the sampling profiler so its stack samples join the
-        # trace's verify edge instead of landing unstaged.
-        def _tagged():
-            with pyprof.stage("verify"):
-                return verify_fn(*args)
+    armed = stages.ARMED
+    submitted = time.perf_counter_ns() if armed else 0
+    returned = 0
 
-        return await loop.run_in_executor(_executor(), _tagged)
-    return await loop.run_in_executor(_executor(), lambda: verify_fn(*args))
+    def work():
+        # On a crypto worker thread: the profiler's ``verify`` tag, so the
+        # thread's stack samples join the trace's verify edge instead of
+        # landing unstaged, and the bridge's spans when the stages are armed.
+        nonlocal returned
+        if armed:
+            stages.interval("crypto.bridge.queue", submitted, time.perf_counter_ns())
+        try:
+            if pyprof.TAGGING:
+                with pyprof.stage("verify"):
+                    return verify_fn(*args)
+            return verify_fn(*args)
+        finally:
+            if armed:
+                returned = time.perf_counter_ns()
+
+    try:
+        return await loop.run_in_executor(_executor(), work)
+    finally:
+        if returned:
+            stages.interval("crypto.bridge.resume", returned, time.perf_counter_ns())

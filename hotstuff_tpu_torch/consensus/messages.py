@@ -17,7 +17,9 @@ A materialized ``QC`` verifies through ``Signature.verify_batch`` and a
 (seat bitmap + packed signature buffer) decodes lazily and verifies from
 the raw slices through ``backend_verify_cert``. ``CertificateCache`` (one
 per node) and the process-wide ``cert_arena`` skip certificates that
-already verified.
+already verified. With the stage spans armed (``telemetry/stages.py``),
+``decode_message`` records ``consensus.decode`` and a wire-v2
+certificate's verification ``crypto.cert``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from hotstuff_tpu_torch.crypto import (
     backend_verify_cert,
     sha512_digest,
 )
+from hotstuff_tpu_torch.telemetry import stages
 from hotstuff_tpu_torch.utils.serde import MAX_LEN, Decoder, Encoder, SerdeError
 
 from . import cert_arena, errors
@@ -347,11 +350,12 @@ class QC:
         """Raw-slice verification of a lazy v2 QC: the acceptance of the
         materialized path, with ONE fused job per cert (the packed buffer
         and its stride) and the canonical key for the super-batch dedup."""
+        t = stages.begin() if stages.ARMED else None
         seat_list, sig_buf, seats = raw
         keys = seats.keys
-        if _seat_weight(committee, keys, seat_list) < committee.quorum_threshold():
-            raise errors.QCRequiresQuorum("QC requires a quorum")
         try:
+            if _seat_weight(committee, keys, seat_list) < committee.quorum_threshold():
+                raise errors.QCRequiresQuorum("QC requires a quorum")
             backend_verify_cert(
                 self.digest().data,
                 [keys[s].data for s in seat_list],
@@ -363,6 +367,9 @@ class QC:
             raise  # infrastructure failure, NOT a byzantine signature
         except CryptoError as e:
             raise errors.InvalidSignature(str(e)) from e
+        finally:
+            if t is not None:
+                stages.end("crypto.cert", t)
 
     def encode(self, enc: Encoder, seats: "SeatTable | None" = None) -> None:
         enc.raw(self.hash.data).u64(self.round)
@@ -510,13 +517,14 @@ class TC:
         """Raw-slice verification of a lazy v2 TC: per-seat statements (each
         voter signs its own high_qc_round), one fused job over the packed
         72-byte records."""
+        t = stages.begin() if stages.ARMED else None
         seat_list, buf, seats = raw
         keys = seats.keys
         rec = self._REC
-        if _seat_weight(committee, keys, seat_list) < committee.quorum_threshold():
-            raise errors.TCRequiresQuorum("TC requires a quorum")
-        round_le = _U64.pack(self.round)
         try:
+            if _seat_weight(committee, keys, seat_list) < committee.quorum_threshold():
+                raise errors.TCRequiresQuorum("TC requires a quorum")
+            round_le = _U64.pack(self.round)
             backend_verify_cert(
                 [_tc_digest(round_le, buf[i * rec + 64 : i * rec + 72]).data for i in range(len(seat_list))],
                 [keys[s].data for s in seat_list],
@@ -528,6 +536,9 @@ class TC:
             raise  # infrastructure failure, NOT a byzantine signature
         except CryptoError as e:
             raise errors.InvalidSignature(str(e)) from e
+        finally:
+            if t is not None:
+                stages.end("crypto.cert", t)
 
     def encode(self, enc: Encoder, seats: "SeatTable | None" = None) -> None:
         enc.u64(self.round)
@@ -882,40 +893,45 @@ def decode_message(data: bytes, seats: "SeatTable | None" = None):
 
     With ``seats``, wire-format v2 certificate sections are accepted beside
     v1; without it a v2 frame is rejected as malformed (a v1-only peer)."""
-    dec = Decoder(data)
-    tag = dec.u8()
-    if tag == TAG_PROPOSE:
-        block = Block.decode(dec, seats)
+    t = stages.begin() if stages.ARMED else None
+    try:
+        dec = Decoder(data)
+        tag = dec.u8()
+        if tag == TAG_PROPOSE:
+            block = Block.decode(dec, seats)
+            dec.finish()
+            # A v1 frame's tail IS the block's store encoding; a v2 frame is not
+            # (stores stay v1-canonical), so serialize() re-encodes that once.
+            if "_raw_votes" not in block.qc.__dict__ and (
+                block.tc is None or "_raw_votes" not in block.tc.__dict__
+            ):
+                block._wire = bytes(data[1:])
+            return ("propose", block)
+        elif tag == TAG_VOTE:
+            out = ("vote", Vote(Digest(dec.raw(32)), dec.u64(), _intern_pk(dec.raw(32)), Signature(dec.raw(64))))
+        elif tag == TAG_TIMEOUT:
+            out = ("timeout", Timeout.decode(dec, seats))
+        elif tag == TAG_TC:
+            out = ("tc", TC.decode(dec, seats))
+        elif tag == TAG_SYNC_REQUEST:
+            out = ("sync_request", (Digest(dec.raw(32)), PublicKey(dec.raw(32))))
+        elif tag == TAG_STATE_REQUEST:
+            out = ("state_request", (dec.u64(), PublicKey(dec.raw(32))))
+        elif tag == TAG_STATE_RESPONSE:
+            has_snapshot = dec.u8()
+            if has_snapshot not in (0, 1):
+                raise errors.MalformedMessage("state_response snapshot flag")
+            round_ = dec.u64()
+            digest = Digest(dec.raw(32))
+            # tag(1) + flag(1) + round(8) + digest(32) = 42 bytes consumed; the
+            # snapshot record is the whole remaining tail.
+            snapshot = bytes(dec.raw(len(data) - 42)) if has_snapshot else None
+            dec.finish()
+            return ("state_response", (round_, digest, snapshot))
+        else:
+            raise errors.MalformedMessage(f"unknown consensus tag {tag}")
         dec.finish()
-        # A v1 frame's tail IS the block's store encoding; a v2 frame is not
-        # (stores stay v1-canonical), so serialize() re-encodes that once.
-        if "_raw_votes" not in block.qc.__dict__ and (
-            block.tc is None or "_raw_votes" not in block.tc.__dict__
-        ):
-            block._wire = bytes(data[1:])
-        return ("propose", block)
-    elif tag == TAG_VOTE:
-        out = ("vote", Vote(Digest(dec.raw(32)), dec.u64(), _intern_pk(dec.raw(32)), Signature(dec.raw(64))))
-    elif tag == TAG_TIMEOUT:
-        out = ("timeout", Timeout.decode(dec, seats))
-    elif tag == TAG_TC:
-        out = ("tc", TC.decode(dec, seats))
-    elif tag == TAG_SYNC_REQUEST:
-        out = ("sync_request", (Digest(dec.raw(32)), PublicKey(dec.raw(32))))
-    elif tag == TAG_STATE_REQUEST:
-        out = ("state_request", (dec.u64(), PublicKey(dec.raw(32))))
-    elif tag == TAG_STATE_RESPONSE:
-        has_snapshot = dec.u8()
-        if has_snapshot not in (0, 1):
-            raise errors.MalformedMessage("state_response snapshot flag")
-        round_ = dec.u64()
-        digest = Digest(dec.raw(32))
-        # tag(1) + flag(1) + round(8) + digest(32) = 42 bytes consumed; the
-        # snapshot record is the whole remaining tail.
-        snapshot = bytes(dec.raw(len(data) - 42)) if has_snapshot else None
-        dec.finish()
-        return ("state_response", (round_, digest, snapshot))
-    else:
-        raise errors.MalformedMessage(f"unknown consensus tag {tag}")
-    dec.finish()
-    return out
+        return out
+    finally:
+        if t is not None:
+            stages.end("consensus.decode", t)

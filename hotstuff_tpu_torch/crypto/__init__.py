@@ -27,6 +27,8 @@ simulation plane (``hotstuff_tpu_torch/sim``), which turns them on. One
 difference, by design: a ``BackendUnavailable`` is never memoised (the
 reference's ``except CryptoError`` would cache one as a failure verdict,
 since it is a ``CryptoError``); it stays unjudged and raises again.
+With the stage spans armed (``telemetry/stages.py``) a strict single
+verification is a ``crypto.single`` span.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ except ImportError:  # the card's host may ship no OpenSSL binding
     _HAVE_PYCA = False
 
 from hotstuff_tpu_torch import telemetry
+from hotstuff_tpu_torch.telemetry import stages
 
 from . import ed25519_ref, native_ed25519
 
@@ -312,17 +315,22 @@ class Signature:
         _memo_put(memo, key, True)
 
     def _verify_now(self, digest: Digest, public_key: PublicKey) -> None:
-        if not _strict_point_checks(public_key.data, self.data):
-            raise CryptoError("small-order or non-canonical point in signature")
-        if _HAVE_PYCA:
-            try:
-                Ed25519PublicKey.from_public_bytes(public_key.data).verify(
-                    self.data, digest.data
-                )
-            except (InvalidSignature, ValueError) as e:
-                raise CryptoError(f"invalid signature: {e}") from e
-        elif not _verify_single_gated(digest.data, public_key.data, self.data):
-            raise CryptoError("invalid signature")
+        t = stages.begin() if stages.ARMED else None
+        try:
+            if not _strict_point_checks(public_key.data, self.data):
+                raise CryptoError("small-order or non-canonical point in signature")
+            if _HAVE_PYCA:
+                try:
+                    Ed25519PublicKey.from_public_bytes(public_key.data).verify(
+                        self.data, digest.data
+                    )
+                except (InvalidSignature, ValueError) as e:
+                    raise CryptoError(f"invalid signature: {e}") from e
+            elif not _verify_single_gated(digest.data, public_key.data, self.data):
+                raise CryptoError("invalid signature")
+        finally:
+            if t is not None:
+                stages.end("crypto.single", t)
 
     @staticmethod
     def verify_batch(digest: Digest, votes) -> None:

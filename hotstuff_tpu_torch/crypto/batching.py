@@ -21,6 +21,8 @@ reaches every waiter as ``BackendUnavailable``, never as acceptance.
 The inner calls run on the flusher thread. In front of ``CudaBackend``
 that thread launches the kernels; a fresh thread's current CUDA stream is
 the default stream, which is the one ``CudaBackend`` uses from any thread.
+With the stage spans armed (``telemetry/stages.py``) a request's wait for
+the flusher is a ``crypto.batch.wait`` span.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import threading
 import time
 
 from hotstuff_tpu_torch import telemetry
+from hotstuff_tpu_torch.telemetry import stages
 
 from . import (
     BackendUnavailable,
@@ -131,7 +134,10 @@ class BatchingBackend:
                 )
                 self._thread.start()
             self._cv.notify()
+        t = stages.begin() if stages.ARMED else None
         req.done.wait()
+        if t is not None:
+            stages.end("crypto.batch.wait", t)
         if req.error is not None:
             raise req.error
 

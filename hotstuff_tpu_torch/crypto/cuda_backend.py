@@ -25,7 +25,9 @@ The error contract is the reference's (``tpu_backend.py:64-106``):
 Each non-empty batch counts into the telemetry counters
 ``crypto.dispatch.cuda`` and ``crypto.dispatch.cuda_sigs`` (the
 reference's ``crypto.dispatch.tpu`` and ``tpu_sigs``, renamed as the
-switches' values are), and into ``dispatches`` and ``sigs``.
+switches' values are), and into ``dispatches`` and ``sigs``. With the
+stage spans armed (``telemetry/stages.py``) each such batch is one
+``crypto.backend`` span.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import threading
 from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.ops import verify as ops_verify
 from hotstuff_tpu_torch.parallel import mesh as pmesh
+from hotstuff_tpu_torch.telemetry import stages
 from hotstuff_tpu_torch.utils.device import resolve
 
 from . import BackendUnavailable, CryptoError
@@ -80,6 +83,9 @@ class CudaBackend:
             raise CryptoError("batch length mismatch")
         if not msgs:
             return
+        # One span a dispatch: ``crypto.backend.calls`` moves with
+        # ``crypto.dispatch.cuda``.
+        t = stages.begin() if stages.ARMED else None
         with self._count_lock:
             self.dispatches += 1
             self.sigs += len(msgs)
@@ -109,5 +115,8 @@ class CudaBackend:
         except Exception as e:
             # Device or runtime failure: the batch was NOT judged.
             raise BackendUnavailable(f"device verification failed: {e!r}") from e
+        finally:
+            if t is not None:
+                stages.end("crypto.backend", t)
         if not ok:
             raise CryptoError("invalid signature in batch (device)")

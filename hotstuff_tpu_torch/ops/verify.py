@@ -14,6 +14,12 @@ the MSMs (K2 + K3 on the cached path, K4 + K3 uncached) and the verdict
 
 The packed layouts and their host prep are byte-identical to the
 reference's, so both verify the same batch from the same bytes.
+
+With the stage spans armed (``telemetry/stages.py``) a batch records its
+host prep as ``crypto.prep.ensure`` (the key cache), ``crypto.prep.scalars``
+(the per-signature loop), ``crypto.prep.recode`` (signed digits) and
+``crypto.prep.pack``, then ``crypto.launch`` (the copy to the card and the
+kernels' enqueue) and ``crypto.wait`` (the host waiting for the verdict).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from hotstuff_tpu_torch.crypto.ed25519_ref import G, L, P, point_compress
+from hotstuff_tpu_torch.telemetry import stages
 from hotstuff_tpu_torch.utils.device import resolve
 
 from . import curve as cv
@@ -89,13 +96,10 @@ def _pad_to_pow2(n: int, minimum: int = 4) -> int:
     return m
 
 
-def prepare_batch(msgs, pubs, sigs, _rng=None):
-    """Host-side prep: strictness checks, challenges, RLC scalars, and the
-    packed uint8 batch array. Returns ``(packed, m_padded)`` where
-    ``packed`` is uint8[m, 65] (see ``_unpack_device``), or None if the
-    batch is rejected host-side."""
-    randbits = _rng.getrandbits if _rng is not None else secrets.randbits
-
+def _uncached_lanes(msgs, pubs, sigs, randbits):
+    """The per-signature work of ``prepare_batch``: strictness checks,
+    challenges and RLC scalars. Returns the lanes' ``(encodings,
+    scalars)``, the base point's last, or None if a check rejects."""
     encodings: list[bytes] = []
     scalars: list[int] = []
     b_coeff = 0
@@ -120,7 +124,25 @@ def prepare_batch(msgs, pubs, sigs, _rng=None):
         scalars.append(z * h % L)
     encodings.append(_B_ENC)
     scalars.append((-b_coeff) % L)
+    return encodings, scalars
 
+
+def prepare_batch(msgs, pubs, sigs, _rng=None):
+    """Host-side prep: strictness checks, challenges, RLC scalars, and the
+    packed uint8 batch array. Returns ``(packed, m_padded)`` where
+    ``packed`` is uint8[m, 65] (see ``_unpack_device``), or None if the
+    batch is rejected host-side."""
+    randbits = _rng.getrandbits if _rng is not None else secrets.randbits
+
+    t = stages.begin() if stages.ARMED else None
+    lanes = _uncached_lanes(msgs, pubs, sigs, randbits)
+    if t is not None:
+        stages.end("crypto.prep.scalars", t)
+    if lanes is None:
+        return None
+    encodings, scalars = lanes
+
+    t = stages.begin() if stages.ARMED else None
     m = _pad_to_pow2(len(encodings))
     pad = m - len(encodings)
     encodings.extend([_IDENTITY_ENC] * pad)
@@ -135,6 +157,8 @@ def prepare_batch(msgs, pubs, sigs, _rng=None):
     packed[:, 31] &= 0x7F  # sign bit moved to its own byte
     packed[:, 32:64] = scalar_bytes
     packed[:, 64] = data[:, 31] >> 7
+    if t is not None:
+        stages.end("crypto.prep.pack", t)
     return packed, m
 
 
@@ -147,6 +171,21 @@ def pad_prepared(packed: np.ndarray, target: int):
     return np.concatenate([packed, pad])
 
 
+def _launch_and_wait(run, packed: torch.Tensor, device, *args) -> bool:
+    """Copy a packed host batch to ``device`` and enqueue ``run`` on it
+    (the ``crypto.launch`` span), then wait for its verdict
+    (``crypto.wait``: the host waiting for the card)."""
+    t = stages.begin() if stages.ARMED else None
+    verdict = run(packed.to(device), *args)
+    if t is not None:
+        stages.end("crypto.launch", t)
+        t = stages.begin()
+    ok = bool(verdict)
+    if t is not None:
+        stages.end("crypto.wait", t)
+    return ok
+
+
 def verify_batch_device(msgs, pubs, sigs, _rng=None, device="cuda") -> bool:
     """msgs/pubs/sigs: equal-length lists of bytes. True iff the whole
     batch is valid under cofactored semantics (the uncached path)."""
@@ -157,7 +196,7 @@ def verify_batch_device(msgs, pubs, sigs, _rng=None, device="cuda") -> bool:
     if prepared is None:
         return False
     packed, _ = prepared
-    return bool(run_uncached(torch.from_numpy(packed).to(dev)))
+    return _launch_and_wait(run_uncached, torch.from_numpy(packed), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -322,21 +361,11 @@ def run_cached(packed: torch.Tensor, cache_arr: torch.Tensor, mf: int) -> torch.
     return mk.verdict(ok_f, mk.msm_signed(pts_f, digits_f), mk.msm_signed(pts_c, digits_c))
 
 
-def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
-    """Host prep for the cached path. Returns ``(packed, mf, mc)`` or None
-    if the batch is rejected host-side (non-canonical encodings, invalid
-    cached keys)."""
-    randbits = _rng.getrandbits if _rng is not None else secrets.randbits
-
-    # Length checks BEFORE cache.ensure: a wrong-length pub is a rejection,
-    # not a shape error.
-    for pub, sig in zip(pubs, sigs):
-        if len(sig) != 64 or len(pub) != 32:
-            return None
-
-    if not cache.ensure(pubs):
-        return None
-
+def _cached_lanes(msgs, pubs, sigs, cache: DevicePointCache, randbits):
+    """The per-signature work of ``prepare_batch_cached``: strictness
+    checks, challenges and RLC scalars. Returns ``(r_encs, z_bytes, rows,
+    full_scalars)``, the base point's row and scalar last, or None if a
+    check rejects."""
     n = len(msgs)
     r_encs: list[bytes] = []
     z_bytes = np.zeros((n, 32), dtype=np.uint8)
@@ -344,7 +373,7 @@ def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
     full_scalars: list[int] = []
     b_coeff = 0
     for i, (msg, pub, sig) in enumerate(zip(msgs, pubs, sigs)):
-        r_enc, s_bytes = sig[:32], sig[32:]  # lengths validated above
+        r_enc, s_bytes = sig[:32], sig[32:]  # lengths validated by the caller
         s = int.from_bytes(s_bytes, "little")
         if s >= L:
             return None
@@ -359,16 +388,50 @@ def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
         full_scalars.append(z * h % L)
     rows.append(0)  # base point row
     full_scalars.append((-b_coeff) % L)
+    return r_encs, z_bytes, rows, full_scalars
 
+
+def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
+    """Host prep for the cached path. Returns ``(packed, mf, mc)`` or None
+    if the batch is rejected host-side (non-canonical encodings, invalid
+    cached keys)."""
+    randbits = _rng.getrandbits if _rng is not None else secrets.randbits
+
+    # Length checks BEFORE cache.ensure: a wrong-length pub is a rejection,
+    # not a shape error.
+    for pub, sig in zip(pubs, sigs):
+        if len(sig) != 64 or len(pub) != 32:
+            return None
+
+    t = stages.begin() if stages.ARMED else None
+    known = cache.ensure(pubs)
+    if t is not None:
+        stages.end("crypto.prep.ensure", t)
+    if not known:
+        return None
+
+    t = stages.begin() if stages.ARMED else None
+    lanes = _cached_lanes(msgs, pubs, sigs, cache, randbits)
+    if t is not None:
+        stages.end("crypto.prep.scalars", t)
+    if lanes is None:
+        return None
+    r_encs, z_bytes, rows, full_scalars = lanes
+
+    n = len(msgs)
     mf = _pad_to_pow2(n)
     mc = _pad_to_pow2(n + 1)
 
+    t = stages.begin() if stages.ARMED else None
     digits_f = cv.signed_digits_from_bytes(z_bytes, N_WINDOWS_RLC)  # [33, n]
     sc_bytes = np.frombuffer(
         b"".join(s.to_bytes(32, "little") for s in full_scalars), dtype=np.uint8
     ).reshape(-1, 32)
     digits_c = cv.signed_digits_from_bytes(sc_bytes, N_WINDOWS_FULL)  # [64, n+1]
+    if t is not None:
+        stages.end("crypto.prep.recode", t)
 
+    t = stages.begin() if stages.ARMED else None
     packed = np.zeros((mf + mc, _ROW_WIDTH), dtype=np.uint8)
     enc_arr = np.frombuffer(b"".join(r_encs), dtype=np.uint8).reshape(n, 32)
     packed[:n, :32] = enc_arr
@@ -384,6 +447,8 @@ def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
     c[: n + 1, 64] = (row_arr & 0xFF).astype(np.uint8)
     c[: n + 1, 65] = (row_arr >> 8).astype(np.uint8)
     c[n + 1 :, :64] = 8  # biased zero digits, row 0 (B * 0 = identity)
+    if t is not None:
+        stages.end("crypto.prep.pack", t)
     return packed, mf, mc
 
 
@@ -409,4 +474,4 @@ def verify_batch_device_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=N
     if prepared is None:
         return False
     packed, mf, _ = prepared
-    return bool(run_cached(torch.from_numpy(packed).to(cache.device), cache.array, mf))
+    return _launch_and_wait(run_cached, torch.from_numpy(packed), cache.device, cache.array, mf)

@@ -433,10 +433,12 @@ def reset_for_tests() -> None:
     """Clear registry, tables, trace ring, and enablement (isolation)."""
     global _ENABLED, _DTRACE_DETACHED
     from . import dtrace as _dtrace, profiler as _profiler, resources as _resources
+    from . import stages as _stages
 
     _profiler.reset_for_tests()
     _resources.reset_for_tests()
     _dtrace.reset_for_tests()
+    _stages.reset_for_tests()
     _REGISTRY.reset()
     _TRACE_BUFFER.clear()
     _DTRACE_BUFFER.clear()

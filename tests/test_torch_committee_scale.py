@@ -6,7 +6,8 @@ the ``cpu`` backend.
 - ``--mode crypto --nodes 16``, with and without ``--tc-heavy``: the same
   line up to its timing, and the same result-file name holding it.
 - ``--mode protocol --nodes 4 --rounds 3 --profile``: both commit and
-  print a stage table with the same stages.
+  print a stage table with the same handler stages; the port's also bills
+  the certificate path's stage spans, and leaves them unarmed after.
 - ``--faults chaos:<seed> --nodes 4 --replay`` at a 4 s fault duration: the
   two packages' replay traces are byte-identical, and each replay matched
   its first run.
@@ -31,6 +32,7 @@ from hotstuff_tpu.consensus import cert_arena as j_arena
 from hotstuff_tpu_torch import telemetry as t_telemetry
 from hotstuff_tpu_torch.benchmark import committee_scale as t_scale
 from hotstuff_tpu_torch.consensus import cert_arena as t_arena
+from hotstuff_tpu_torch.telemetry import stages
 
 BASE = 24410
 PACKAGES = {"port": (t_scale, t_crypto), "reference": (j_scale, j_crypto)}
@@ -106,9 +108,14 @@ def test_protocol_mode_commits_and_profiles_the_same_stages(tmp_path, monkeypatc
         assert (tmp_path / label / "committee-protocol-cpu-4.txt").read_text() == "".join(
             line + "\n" for line in lines)
         out[label] = (fixed, stage_table(lines))
-    assert out["port"] == out["reference"]
-    assert out["port"][0] == "committee=4 (f=1, QC size 3) mode=protocol backend=cpu transport=asyncio"
-    assert "propose" in out["port"][1]
+    port_fixed, port_stages = out["port"]
+    spans = [s for s in port_stages if s in stages.NESTING]
+    assert (port_fixed, [s for s in port_stages if s not in spans]) == out["reference"]
+    assert port_fixed == "committee=4 (f=1, QC size 3) mode=protocol backend=cpu transport=asyncio"
+    assert "propose" in port_stages
+    # At N = 4 under ``cpu`` every certificate verifies inline on the loop.
+    assert spans == ["consensus.decode", "crypto.cert", "crypto.single"]
+    assert stages.ARMED is False
 
 
 def test_chaos_replay_traces_are_byte_identical_across_packages(tmp_path, monkeypatch, capsys):
