@@ -25,12 +25,13 @@ kernels' enqueue) and ``crypto.wait`` (the host waiting for the verdict).
 from __future__ import annotations
 
 import hashlib
-import secrets
+import os
 import threading
 
 import numpy as np
 import torch
 
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.crypto.ed25519_ref import G, L, P, point_compress
 from hotstuff_tpu_torch.telemetry import stages
 from hotstuff_tpu_torch.utils.device import resolve
@@ -96,14 +97,38 @@ def _pad_to_pow2(n: int, minimum: int = 4) -> int:
     return m
 
 
-def _uncached_lanes(msgs, pubs, sigs, randbits):
+def _rlc_coefficients(n: int, _rng=None) -> np.ndarray:
+    """A batch's ``n`` RLC coefficients ``z_i`` as uint8[n, 16], little-
+    endian 128-bit draws with the top bit set, in one draw: one
+    ``os.urandom`` (the CSPRNG that ``secrets.randbits`` reads) or, with a
+    seeded ``_rng``, one wide ``getrandbits``, whose bytes are those of
+    ``n`` successive ``getrandbits(128)`` (CPython fills a wide draw from
+    its 32-bit words least significant first), as the reference draws them.
+
+    One draw a batch, not one a signature: every ``os.urandom`` call gives
+    up the GIL, and two workers' per-signature loops convoyed on those
+    hand-offs. Counted in ``crypto.rlc.draws`` and ``crypto.rlc.coefficients``.
+    """
+    if _rng is None:
+        raw = os.urandom(16 * n)
+    else:
+        raw = _rng.getrandbits(128 * n).to_bytes(16 * n, "little")
+    z = np.frombuffer(bytearray(raw), dtype=np.uint8).reshape(n, 16)
+    z[:, 15] |= 0x80
+    telemetry.counter("crypto.rlc.draws").inc()
+    telemetry.counter("crypto.rlc.coefficients").inc(n)
+    return z
+
+
+def _uncached_lanes(msgs, pubs, sigs, _rng):
     """The per-signature work of ``prepare_batch``: strictness checks,
     challenges and RLC scalars. Returns the lanes' ``(encodings,
     scalars)``, the base point's last, or None if a check rejects."""
+    zs = _rlc_coefficients(len(msgs), _rng).tobytes()
     encodings: list[bytes] = []
     scalars: list[int] = []
     b_coeff = 0
-    for msg, pub, sig in zip(msgs, pubs, sigs):
+    for i, (msg, pub, sig) in enumerate(zip(msgs, pubs, sigs)):
         if len(sig) != 64 or len(pub) != 32:
             return None
         r_enc, s_bytes = sig[:32], sig[32:]
@@ -115,7 +140,7 @@ def _uncached_lanes(msgs, pubs, sigs, randbits):
             return None
         if (int.from_bytes(r_enc, "little") & _HALF_MASK) >= P:
             return None
-        z = randbits(128) | (1 << 127)
+        z = int.from_bytes(zs[16 * i : 16 * i + 16], "little")
         h = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % L
         b_coeff = (b_coeff + z * s) % L
         encodings.append(r_enc)
@@ -132,10 +157,8 @@ def prepare_batch(msgs, pubs, sigs, _rng=None):
     packed uint8 batch array. Returns ``(packed, m_padded)`` where
     ``packed`` is uint8[m, 65] (see ``_unpack_device``), or None if the
     batch is rejected host-side."""
-    randbits = _rng.getrandbits if _rng is not None else secrets.randbits
-
     t = stages.begin() if stages.ARMED else None
-    lanes = _uncached_lanes(msgs, pubs, sigs, randbits)
+    lanes = _uncached_lanes(msgs, pubs, sigs, _rng)
     if t is not None:
         stages.end("crypto.prep.scalars", t)
     if lanes is None:
@@ -361,14 +384,17 @@ def run_cached(packed: torch.Tensor, cache_arr: torch.Tensor, mf: int) -> torch.
     return mk.verdict(ok_f, mk.msm_signed(pts_f, digits_f), mk.msm_signed(pts_c, digits_c))
 
 
-def _cached_lanes(msgs, pubs, sigs, cache: DevicePointCache, randbits):
+def _cached_lanes(msgs, pubs, sigs, cache: DevicePointCache, _rng):
     """The per-signature work of ``prepare_batch_cached``: strictness
     checks, challenges and RLC scalars. Returns ``(r_encs, z_bytes, rows,
     full_scalars)``, the base point's row and scalar last, or None if a
     check rejects."""
     n = len(msgs)
+    coeffs = _rlc_coefficients(n, _rng)
+    zs = coeffs.tobytes()
     r_encs: list[bytes] = []
     z_bytes = np.zeros((n, 32), dtype=np.uint8)
+    z_bytes[:, :16] = coeffs
     rows: list[int] = []
     full_scalars: list[int] = []
     b_coeff = 0
@@ -379,11 +405,10 @@ def _cached_lanes(msgs, pubs, sigs, cache: DevicePointCache, randbits):
             return None
         if (int.from_bytes(r_enc, "little") & _HALF_MASK) >= P:
             return None
-        z = randbits(128) | (1 << 127)
+        z = int.from_bytes(zs[16 * i : 16 * i + 16], "little")
         h = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % L
         b_coeff = (b_coeff + z * s) % L
         r_encs.append(r_enc)
-        z_bytes[i, :16] = np.frombuffer(z.to_bytes(16, "little"), dtype=np.uint8)
         rows.append(cache.lookup(pub))
         full_scalars.append(z * h % L)
     rows.append(0)  # base point row
@@ -395,8 +420,6 @@ def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
     """Host prep for the cached path. Returns ``(packed, mf, mc)`` or None
     if the batch is rejected host-side (non-canonical encodings, invalid
     cached keys)."""
-    randbits = _rng.getrandbits if _rng is not None else secrets.randbits
-
     # Length checks BEFORE cache.ensure: a wrong-length pub is a rejection,
     # not a shape error.
     for pub, sig in zip(pubs, sigs):
@@ -411,7 +434,7 @@ def prepare_batch_cached(msgs, pubs, sigs, cache: DevicePointCache, _rng=None):
         return None
 
     t = stages.begin() if stages.ARMED else None
-    lanes = _cached_lanes(msgs, pubs, sigs, cache, randbits)
+    lanes = _cached_lanes(msgs, pubs, sigs, cache, _rng)
     if t is not None:
         stages.end("crypto.prep.scalars", t)
     if lanes is None:

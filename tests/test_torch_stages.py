@@ -137,8 +137,10 @@ def test_unarmed_sites_read_the_switch_and_nothing_else(path, monkeypatch):
     assert stage_counters() == {}
     assert stages.intervals() == [] and stages.ring().evicted == 0
     counters = telemetry.get_registry().snapshot()["counters"]
-    assert {k for k in counters if k.startswith("crypto.")} == {
-        "crypto.dispatch.cuda", "crypto.dispatch.cuda_sigs"}
+    # Only the always-on counters: the dispatch's and the batch's one RLC draw.
+    assert {k: v for k, v in counters.items() if k.startswith("crypto.")} == {
+        "crypto.dispatch.cuda": 1, "crypto.dispatch.cuda_sigs": 3,
+        "crypto.rlc.draws": 1, "crypto.rlc.coefficients": 3}
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["plain", "batched"])

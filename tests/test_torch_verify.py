@@ -9,6 +9,7 @@ No JAX verify graph is built: the reference side runs host prep, eager
 unpacking and one decompression compile only.
 """
 
+import os
 import random
 
 import numpy as np
@@ -19,6 +20,7 @@ import jax.numpy as jnp
 
 from hotstuff_tpu.crypto import ed25519_ref as ref
 from hotstuff_tpu.ops import verify as jv
+from hotstuff_tpu_torch import telemetry
 from hotstuff_tpu_torch.ops import msm_kernels as mk
 from hotstuff_tpu_torch.ops import verify as tv
 
@@ -118,6 +120,71 @@ def test_host_rejections_equal_reference(name):
     assert jv.prepare_batch(msgs, pubs, sigs) is None
     assert tv.prepare_batch_cached(msgs, pubs, sigs, stub) is None
     assert jv.prepare_batch_cached(msgs, pubs, sigs, stub) is None
+
+
+def lane_coefficients(path, packed, n):
+    """The RLC coefficients z_i of a prepared batch's n R lanes, read back
+    from its packed layout: ``prepare_batch`` keeps z_i's 32 little-endian
+    bytes beside R_i (even rows), ``prepare_batch_cached`` its 33 signed
+    digits, MSB-first and biased by 8, in the fresh rows."""
+    if path == "uncached":
+        return [int.from_bytes(packed[2 * i, 32:64].tobytes(), "little") for i in range(n)]
+    digits = packed[:n, 32:65].astype(np.int64) - 8
+    return [sum(int(d) << (4 * (32 - k)) for k, d in enumerate(row)) for row in digits]
+
+
+def prepare(path, msgs, pubs, sigs):
+    """A batch prepared with the default, unseeded coefficients."""
+    if path == "uncached":
+        return tv.prepare_batch(msgs, pubs, sigs)[0]
+    return tv.prepare_batch_cached(msgs, pubs, sigs, StubCache(pubs))[0]
+
+
+@pytest.mark.parametrize("path", ["uncached", "cached"])
+def test_unseeded_batch_draws_its_coefficients_in_one_urandom_call(path, monkeypatch):
+    calls = []
+    urandom = os.urandom
+
+    def counting(k):
+        calls.append(k)
+        return urandom(k)
+
+    monkeypatch.setattr(os, "urandom", counting)
+    n = 9
+    msgs, pubs, sigs = make_batch(n, seed=41)
+    first = lane_coefficients(path, prepare(path, msgs, pubs, sigs), n)
+    assert calls == [16 * n]
+    second = lane_coefficients(path, prepare(path, msgs, pubs, sigs), n)
+    assert calls == [16 * n, 16 * n]
+    for zs in (first, second):
+        assert all(z >> 127 == 1 for z in zs)  # 128 bits wide, the top one set
+    assert first != second
+    assert len(set(first)) == n
+
+
+@pytest.mark.parametrize("n", [1, 2, 673])
+def test_seeded_coefficients_equal_successive_128_bit_draws(n):
+    draws = random.Random(1000 + n)
+    want = [draws.getrandbits(128) | 1 << 127 for _ in range(n)]
+    got = tv._rlc_coefficients(n, random.Random(1000 + n))
+    assert got.shape == (n, 16) and got.dtype == np.uint8
+    assert [int.from_bytes(row.tobytes(), "little") for row in got] == want
+
+
+@pytest.mark.parametrize("path", ["uncached", "cached"])
+def test_rlc_counters_count_one_draw_a_batch(path):
+    telemetry.reset_for_tests()
+    telemetry.enable()
+    try:
+        registry = telemetry.get_registry()
+        for n in (3, 5):
+            draws = registry.counter("crypto.rlc.draws").value()
+            coefficients = registry.counter("crypto.rlc.coefficients").value()
+            prepare(path, *make_batch(n, seed=90 + n))
+            assert registry.counter("crypto.rlc.draws").value() - draws == 1
+            assert registry.counter("crypto.rlc.coefficients").value() - coefficients == n
+    finally:
+        telemetry.reset_for_tests()
 
 
 def test_unpack_limb_exact():
