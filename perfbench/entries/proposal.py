@@ -1,7 +1,7 @@
-"""Everything the benchmark takes from the program, in one place: the
-entry it drives, the encoder that makes the frames nodes send, the backend
-selection, and the counters it reads. Nothing else under ``perfbench/``
-imports the program.
+"""The ``proposal`` entry: a validator receiving proposals, the entry of
+``n1008-viewchange`` and of every cell whose traffic names no entry. With
+``drive.py`` (the closed loop) and ``inputs.py`` (the plan), the one module
+of this entry that imports the program.
 
 The entry is a validator receiving a proposal: ``decode_message`` on the
 frame, then ``Block.verify`` through the crypto bridge's worker pool
@@ -9,11 +9,20 @@ frame, then ``Block.verify`` through the crypto bridge's worker pool
 could serve a repeated certificate stay off: the process-wide certificate
 arena (``HOTSTUFF_CERT_ARENA=0``), the opt-in verdict memo (never turned
 on), and no ``CertificateCache`` is passed.
+
+``correct``: the plain reference (``reference/``) judges every distinct
+frame handed off in the window from the frame alone; four exact numbers,
+limit 0: ``verdicts_wrong``, ``decodes_wrong``, ``unjudged`` and
+``sigs_gap`` (|the change of ``crypto.dispatch.cuda_sigs`` - the
+signatures the window's proposals sent to a batch check|).
 """
 
 from __future__ import annotations
 
 import os
+import time
+
+from perfbench import drive, faults, inputs, trace
 
 
 def configure_environment(traffic: dict, chips: int) -> None:
@@ -144,3 +153,114 @@ class Program:
             tc.round if tc is not None else None,
             tc.n_votes() if tc is not None else 0,
         )
+
+
+class Entry:
+    """Proposals from the seeded plan, driven in a closed loop of
+    ``in_flight`` clients (``drive.py``)."""
+
+    def __init__(self, config: dict, traffic: dict, seed: int, seconds: float, device: str,
+                 log) -> None:
+        self.config, self.traffic, self.seed = config, traffic, seed
+        self.seconds, self.device, self.log = seconds, device, log
+        self.in_flight = int(traffic["in_flight"])
+
+    def setup(self) -> None:
+        log = self.log
+        t = time.perf_counter()
+        plan = self.plan = inputs.make_plan(self.seed, self.config, self.traffic, self.seconds)
+        log(f"set-up: plan of {len(plan.keys)} validators, {len(plan.certs)} certificates, "
+            f"{len(plan.warmup)} warm-up and {len(plan.window)} window proposals "
+            f"{time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        program = self.program = Program(plan, self.traffic, self.device)
+        warm = program.frames(plan, plan.warmup)
+        self.frames = program.frames(plan, plan.window)
+        log(f"set-up: the program's objects and frames {time.perf_counter() - t:.2f} s")
+        warm_ids = [(p.qc, p.tc) for p in plan.warmup]
+        self.ids = [(p.qc, p.tc) for p in plan.window]
+        out = drive.run(program, warm, warm_ids, self.in_flight, None)
+        wrong = sum(r.verdict != p.intended
+                    for r, p in zip(sorted(out.records, key=lambda r: r.j), plan.warmup))
+        log(f"set-up: warm-up of {len(out.records)} proposals, {wrong} verdicts unlike the plan, "
+            f"{(out.t_drained - out.t_start) / 1e9:.2f} s")
+
+    @property
+    def backend(self):
+        return self.program.backend
+
+    def install(self, control: str | None, fault: str | None) -> None:
+        from hotstuff_tpu_torch.crypto import BackendUnavailable, CryptoError, set_backend
+
+        if control:
+            set_backend({"quorum-only": faults.QuorumOnly}[control]())
+        if fault == "altered-decode":
+            faults.altered_decode(self.program)
+        elif fault:
+            faults.break_backend(fault, self.program.backend, CryptoError, BackendUnavailable)
+
+    def counters(self) -> dict[str, int]:
+        return self.program.counters()
+
+    def launches(self) -> dict[str, int]:
+        return self.program.launches()
+
+    def window(self, seconds: float, spans) -> drive.Outcome:
+        return drive.run(self.program, self.frames, self.ids, self.in_flight, seconds, spans)
+
+    def host_spans(self, run) -> dict:
+        spans = run.spans
+        return {
+            "backend call": trace.merge((a, b) for a, b, _, _ in spans.backend),
+            "verify outside the backend": trace.merge(spans.verify),
+            "decode": trace.merge(spans.decode),
+            "bridge hand-off": trace.merge((r.t0, r.t1) for r in run.records),
+        }
+
+    def check(self, run):
+        """The reference judges every distinct frame handed off in the
+        window."""
+        from perfbench.reference import judge as ref
+
+        t_ref = time.perf_counter()
+        plan, frames = self.plan, self.frames
+        committee = ref.Committee(plan.keys, {k: plan.stake for k in plan.keys})
+        idx = sorted({r.j % len(frames) for r in run.records})
+        verdicts = dict(zip(idx, ref.Judge(committee, self.seed).judge([frames[i] for i in idx])))
+        checks, failed = _compare(run, verdicts, self.program, len(frames))
+        self.log(f"reference: {len(idx)} frames judged in {time.perf_counter() - t_ref:.2f} s")
+        unlike = sum(verdicts[i].verdict != plan.window[i].intended for i in idx)
+        if unlike:
+            # The yardstick's own inputs: the traffic is not what the plan made.
+            self.log(f"the reference's verdicts of {unlike} frames are not the plan's: no result")
+            return None
+        return checks, failed
+
+
+def _compare(run, verdicts: dict, program, n_frames: int):
+    wrong = decodes = unjudged = 0
+    expected_sigs = 0
+    failed = 0
+    for r in run.records:
+        ref = verdicts[r.j % n_frames]
+        expected_sigs += ref.sigs_sent
+        bad = False
+        if r.verdict == "unjudged" or r.verdict.startswith("error:"):
+            unjudged += 1
+            bad = True
+        elif r.verdict != ref.verdict:
+            wrong += 1
+            bad = True
+        if r.block is not None:
+            if program.fields(r.block) != (ref.digest, ref.fields):
+                decodes += 1
+                bad = True
+        failed += bad
+    sigs = run.counters.get("crypto.dispatch.cuda_sigs", 0)
+    checks = {
+        "verdicts_wrong": {"value": wrong, "limit": 0},
+        "decodes_wrong": {"value": decodes, "limit": 0},
+        "unjudged": {"value": unjudged, "limit": 0},
+        "sigs_gap": {"value": abs(sigs - expected_sigs), "limit": 0},
+    }
+    return checks, failed

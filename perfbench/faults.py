@@ -1,6 +1,7 @@
 """The control and the planted faults that the benchmark's comparison has to
 catch. The benchmark's own runs use none of them; ``tests/`` runs each and
-sees ``correct`` come out false.
+sees ``correct`` come out false. Nothing here imports the program: the entry
+(``entries/<name>.py``) hands over the objects and the exception classes.
 
 - control ``quorum-only``: the reference's acceptance rules put in the
   program's place with one guarantee broken: a certificate whose signers
@@ -34,29 +35,24 @@ class QuorumOnly:
         return None
 
 
-def install_control(name: str, program) -> None:
-    from hotstuff_tpu_torch.crypto import set_backend
+def altered_decode(program) -> None:
+    """Every eighth block ``program.decode`` returns has its round one higher."""
+    decode = program.decode
+    decoded = [0]
 
-    set_backend({"quorum-only": QuorumOnly}[name]())
+    def altered(frame):
+        block = decode(frame)
+        decoded[0] += 1
+        if block is not None and decoded[0] % 8 == 1:
+            block.round += 1
+        return block
+
+    program.decode = altered
 
 
-def install_fault(name: str, program) -> None:
-    from hotstuff_tpu_torch.crypto import BackendUnavailable, CryptoError
-
-    if name == "altered-decode":
-        decode = program.decode
-        decoded = [0]
-
-        def altered(frame):
-            block = decode(frame)
-            decoded[0] += 1
-            if block is not None and decoded[0] % 8 == 1:
-                block.round += 1
-            return block
-
-        program.decode = altered
-        return
-    inst = program.backend
+def break_backend(name: str, inst, crypto_error, unavailable_error) -> None:
+    """Plant fault ``name`` under ``inst.verify_batch`` (the card backend
+    instance), with the program's verdict and device-failure exceptions."""
     inner = inst.verify_batch
     calls = [0]
 
@@ -69,12 +65,12 @@ def install_fault(name: str, program) -> None:
             calls[0] += 1
             try:
                 inner(msgs, pubs, sigs)
-            except CryptoError:
+            except crypto_error:
                 if calls[0] % 8 == 1:
                     return None
                 raise
             if calls[0] % 8 == 1:
-                raise CryptoError("verdict turned over")
+                raise crypto_error("verdict turned over")
     elif name == "unchanged":
         def verify_batch(msgs, pubs, sigs):
             return None
@@ -82,7 +78,7 @@ def install_fault(name: str, program) -> None:
         def verify_batch(msgs, pubs, sigs):
             calls[0] += 1
             if calls[0] % 8 == 1:
-                raise BackendUnavailable("device verification failed")
+                raise unavailable_error("device verification failed")
             return inner(msgs, pubs, sigs)
     else:
         raise ValueError(f"unknown fault {name!r}")

@@ -15,8 +15,8 @@ minutes. Every proposal is its own block: its own round, payload and
 author signature. The window's proposals carry ``plan_sigs_per_s`` times
 its seconds in certificate signatures, a rate set a quarter above the one
 the program sustains; a faster program cycles them, and every cycle pays
-in full. The plan holds plain data only; ``program.py`` encodes it into
-frames with the program's encoder.
+in full. The plan holds plain data only; ``entries/proposal.py`` encodes it
+into frames with the program's encoder.
 """
 
 from __future__ import annotations

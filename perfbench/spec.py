@@ -1,8 +1,12 @@
 """``BENCHMARK.json`` and the files it names, found by name: a cell's
 configuration is the ``file`` of its ``configs`` entry, its traffic mix is
-``traffic/<traffic>.json`` and each metric is read by
-``metrics/<name>.py``. Adding a cell, a mix or a metric adds files and
-entries and edits none."""
+``traffic/<traffic>.json``, the part of the program it drives is
+``entries/<entry>.py`` for the traffic file's ``"entry"`` (``proposal``
+where it names none), and each metric is read by ``metrics/<name>.py``.
+A cell whose entry exists is added with data files: a configuration, a
+traffic file and their entries in ``BENCHMARK.json``. A new entry, mix or
+metric is added as new files and entries; none of them edits a file that
+is there."""
 
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ def cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     with open(root / configs[w["config"]]["file"]) as f:
         config = json.load(f)
-    with open(HERE / "traffic" / f"{w['traffic']}.json") as f:
+    with open(root / "perfbench" / "traffic" / f"{w['traffic']}.json") as f:
         traffic = json.load(f)
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
     layer = [m for m in bench["per_layer"] if _applies(m, name)]

@@ -50,3 +50,52 @@ def test_refuses_without_a_card_and_without_the_program(tmp_path):
     assert rc != 0 and result is None
     rc, result, err = run_cell(where, "n1008-viewchange", 5, 1, program=True)
     assert rc != 0 and result is None
+
+
+def test_every_cell_loads_and_names_an_entry_that_exists():
+    from perfbench import entries, spec
+
+    bench = spec.load()
+    for w in bench["workloads"]:
+        cell = spec.cell(bench, w["name"])
+        module = entries.load(cell.traffic)
+        assert hasattr(module, "Entry") and hasattr(module, "configure_environment")
+        assert cell.end_to_end and cell.per_layer, w["name"]
+    # A traffic file that names no entry takes the proposal entry.
+    traffic = spec.cell(bench, "n1008-viewchange").traffic
+    assert "entry" not in traffic
+    assert entries.load(traffic).__name__ == "perfbench.entries.proposal"
+
+
+def test_a_cell_and_an_entry_are_added_as_new_files(tmp_path):
+    """A cell of an existing entry loads from a traffic file added beside
+    the others, whether it names its entry or not; a new entry is found by
+    its file's name."""
+    import subprocess
+    import sys
+
+    from perfbench import entries, spec
+
+    viewchange = json.loads((REPO / "perfbench/traffic/viewchange.json").read_text())
+    where = copy_benchmark(
+        tmp_path,
+        traffic=[("viewchange-named", {**viewchange, "entry": "proposal"}),
+                 ("viewchange-deep", {**viewchange, "in_flight": 4})],
+        workloads=[{"name": "n1008-named", "config": "committee-1008",
+                    "traffic": "viewchange-named", "chips": 1, "why": "test"},
+                   {"name": "n1008-deep", "config": "committee-1008",
+                    "traffic": "viewchange-deep", "chips": 1, "why": "test"}],
+    )
+    bench = spec.load(where)
+    for name in ("n1008-named", "n1008-deep"):
+        cell = spec.cell(bench, name, where)
+        assert cell.config["validators"] == 1008
+        assert entries.load(cell.traffic).__name__ == "perfbench.entries.proposal"
+        assert [m["name"] for m in cell.end_to_end] == [m["name"] for m in bench["end_to_end"]]
+        assert [m["name"] for m in cell.per_layer] == [m["name"] for m in bench["per_layer"]]
+    assert spec.cell(bench, "n1008-deep", where).traffic["in_flight"] == 4
+    (where / "perfbench" / "entries" / "echo.py").write_text('"""A new entry."""\n')
+    code = ("from perfbench import entries\n"
+            "m = entries.load({'entry': 'echo'})\n"
+            "assert m.__doc__ == 'A new entry.', m\n")
+    subprocess.run([sys.executable, "-c", code], cwd=where, check=True, timeout=120)

@@ -6,12 +6,16 @@ card (``cuda``)."""
 
 import pytest
 
-from conftest import REPO, copy_benchmark, run_cell, tiny_copy
+from conftest import REPO, TINY_TRAFFIC, copy_benchmark, run_cell, tiny_copy
 
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
-    return tiny_copy(tmp_path_factory.mktemp("tiny"))
+    # "tiny-parts": the tiny cell with its run spread over two processes.
+    return tiny_copy(tmp_path_factory.mktemp("tiny"),
+                     traffic=[("tiny-parts", {**TINY_TRAFFIC, "processes": 2})],
+                     workloads=[{"name": "tiny-parts", "config": "tiny-4",
+                                 "traffic": "tiny-parts", "chips": 1, "why": "tests"}])
 
 
 def test_sound_run_is_correct(tiny):
@@ -19,6 +23,17 @@ def test_sound_run_is_correct(tiny):
     assert rc == 0, err[-3000:]
     assert result["correct"] is True, err[-3000:]
     assert result["attempted"] >= 1
+
+
+def test_a_run_in_two_processes_reads_both_windows(tiny):
+    rc, result, err = run_cell(tiny, "tiny-parts", 4_200_000_002, 8, extra=["--device", "cpu"])
+    assert rc == 0, err[-3000:]
+    assert "2 processes: windows" in err
+    assert err.count("check verdicts_wrong") == 3  # each process's, then the run's
+    assert result["correct"] is True, err[-3000:]
+    assert result["attempted"] >= 2
+    assert set(result["metrics"]) == {"rounds_per_s", "round_p50_ms", "round_p95_ms", "setup_s"}
+    assert list(result)[-1] == "checks" and "part" not in result
 
 
 @pytest.mark.parametrize("extra", [
@@ -31,6 +46,19 @@ def test_sound_run_is_correct(tiny):
 ])
 def test_control_and_faults_come_out_not_correct(tiny, extra):
     rc, result, err = run_cell(tiny, "tiny", 4_200_000_003, 6, extra=["--device", "cpu", *extra])
+    assert rc == 0, err[-3000:]
+    assert result["correct"] is False, err[-3000:]
+    assert result["failed"] >= 1
+
+
+@pytest.mark.parametrize("extra", [
+    ["--control", "quorum-only"],
+    ["--fault", "altered-verdict"],
+    ["--fault", "unchanged"],
+])
+def test_control_and_faults_fail_a_run_in_two_processes(tiny, extra):
+    rc, result, err = run_cell(tiny, "tiny-parts", 4_200_000_004, 8,
+                               extra=["--device", "cpu", *extra])
     assert rc == 0, err[-3000:]
     assert result["correct"] is False, err[-3000:]
     assert result["failed"] >= 1

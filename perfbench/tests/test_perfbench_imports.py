@@ -1,6 +1,7 @@
 """What the benchmark may import: never JAX or the JAX package (compared by
 the whole top-level name, since ``hotstuff_tpu_torch`` begins with
-``hotstuff_tpu``), never the old harnesses; the reference nothing of the
+``hotstuff_tpu``), never the old harnesses; the program only from the entry
+modules (``entries/<name>.py``), one module an entry; the reference nothing of the
 program."""
 
 import ast
@@ -32,6 +33,16 @@ def test_no_jax_and_no_old_harness_in_any_source():
             assert not name.startswith("hotstuff_tpu_torch.benchmark"), (path, name)
 
 
+def test_only_the_entry_modules_import_the_program():
+    entries = {p for p in (HERE / "entries").glob("*.py") if p.name != "__init__.py"}
+    assert "proposal" in {p.stem for p in entries}
+    for path in HERE.rglob("*.py"):
+        if "tests" in path.relative_to(HERE).parts:
+            continue
+        program = any(n.split(".")[0] == "hotstuff_tpu_torch" for n in _imports(path))
+        assert program == (path in entries), path
+
+
 def test_reference_imports_only_the_standard_library_and_itself():
     allowed = set(sys.stdlib_module_names) | {"perfbench", "__future__"}
     for path in (HERE / "reference").rglob("*.py"):
@@ -42,15 +53,16 @@ def test_reference_imports_only_the_standard_library_and_itself():
 def test_loaded_modules_at_run_time():
     """Importing the harness with the program's entry loads no JAX; the
     reference alone loads nothing of the program and no torch."""
-    code = (
-        "import sys\n"
-        "import perfbench.run, perfbench.program, perfbench.trace, perfbench.inputs\n"
-        "from hotstuff_tpu_torch.consensus import messages, crypto_bridge\n"
-        "from hotstuff_tpu_torch.crypto import cuda_backend, batching\n"
-        "bad = {m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'flax', 'hotstuff_tpu'}\n"
-        "assert not bad, bad\n"
-    )
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+    for entry in sorted(p.stem for p in (HERE / "entries").glob("*.py") if p.stem != "__init__"):
+        code = (
+            "import sys\n"
+            f"import perfbench.run, perfbench.entries.{entry}, perfbench.trace, perfbench.inputs\n"
+            "from hotstuff_tpu_torch.consensus import messages, crypto_bridge\n"
+            "from hotstuff_tpu_torch.crypto import cuda_backend, batching\n"
+            "bad = {m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'flax', 'hotstuff_tpu'}\n"
+            "assert not bad, bad\n"
+        )
+        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
     code = (
         "import sys\n"
         "import perfbench.reference.judge, perfbench.reference.ed25519, perfbench.reference.wire\n"
